@@ -1,0 +1,98 @@
+"""Build the CUDA kernels of ``moge_tpu_torch/csrc`` with nvcc and load them.
+
+Each ``csrc/<name>.cu`` is compiled on first use into a shared library with a
+plain C interface (``<name>-<hash>.so`` in ``moge_tpu_torch/_build``) and
+loaded with ``ctypes``. The hash covers the source, the shared headers and
+the compiler flags, so an edited source is rebuilt and an unchanged one is
+reused. Nothing here runs at import time: a CPU-only install never needs
+nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}  # nvcc/ptxas output per kernel (registers, smem, spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels are built from source on first use")
+
+
+def _digest(src: Path) -> str:
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu`` (built if missing)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    so = BUILD_DIR / f"{name}-{_digest(src)}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _LIBS[name] = lib
+    return lib
+
+
+def build_all() -> Dict[str, float]:
+    """Build (or load) every kernel library; seconds taken per kernel."""
+    times = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        t0 = time.perf_counter()
+        load(src.stem)
+        times[src.stem] = time.perf_counter() - t0
+    return times
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a kernel entry point returned a nonzero CUDA error code
+    (its ``cudaGetLastError()`` right after the launch)."""
+    if rc != 0:
+        lib.moge_error_string.restype = ctypes.c_char_p
+        lib.moge_error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{what}: CUDA error {rc} ({lib.moge_error_string(rc).decode()})")
+
+
+def require_cuda_tensor(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")

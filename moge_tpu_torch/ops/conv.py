@@ -1,0 +1,146 @@
+"""3x3 replicate-pad convolution, NHWC (port of moge_tpu/ops/conv.py).
+
+``conv3x3_replicate`` launches kernel K3 (``csrc/conv3x3.cu``) for CUDA
+tensors and runs ``conv3x3_plain`` for CPU tensors. The plain version is the
+math of the JAX package's ``conv3x3_xla``: [ReLU on the input], replicate
+pad, VALID 3x3 conv with fp32 accumulation, + bias, + residual in fp32, one
+rounding to the input dtype.
+
+``conv3x3_up2_bilinear`` is the bilinear-2x upsample followed by a 3x3
+conv, computed as one K3 conv at the low resolution over parity-expanded
+weights (``up2_conv3_weights``) and a depth-to-space.
+
+Weights use the JAX layout (3, 3, C, O); activations are NHWC.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["conv3x3_replicate", "conv3x3_plain", "conv3x3_up2_bilinear", "up2_conv3_weights",
+           "up2_conv3_expanded", "depth_to_space2", "LAUNCHES"]
+
+LAUNCHES = 0  # kernel launches made by conv3x3_replicate (never by the plain version)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                  residual: Optional[torch.Tensor] = None, input_relu: bool = False) -> torch.Tensor:
+    xf = x.float()
+    if input_relu:
+        xf = xf.clamp_min(0)
+    xp = F.pad(xf.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    y = F.conv2d(xp, kernel.float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(x.dtype)
+
+
+def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
+    global LAUNCHES
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"conv3x3 kernel takes a contiguous NHWC input, got {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    if kernel.shape[:3] != (3, 3, C) or kernel.dim() != 4:
+        raise ValueError(f"conv3x3 kernel weights must be (3, 3, {C}, O), got {tuple(kernel.shape)}")
+    O = kernel.shape[3]
+    if kernel.dtype != x.dtype or not kernel.is_contiguous() or kernel.device != x.device:
+        raise ValueError("conv3x3 kernel weights must be contiguous, in the input's dtype and device")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (O,)
+                             or not bias.is_contiguous() or bias.device != x.device):
+        raise ValueError(f"conv3x3 bias must be a contiguous fp32 ({O},) tensor on {x.device}")
+    if residual is not None and (residual.shape != (B, H, W, O) or residual.dtype != x.dtype
+                                 or not residual.is_contiguous() or residual.device != x.device):
+        raise ValueError(f"conv3x3 residual must be a contiguous ({B}, {H}, {W}, {O}) {x.dtype} tensor")
+    y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = _build.load("conv3x3")
+    fn = lib.moge_conv3x3
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):  # launch on the tensors' card
+        rc = fn(x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+                None if residual is None else residual.data_ptr(), y.data_ptr(),
+                B, H, W, C, O, int(input_relu), _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(lib, rc, "conv3x3_replicate")
+    LAUNCHES += 1
+    return y
+
+
+def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                      residual: Optional[torch.Tensor] = None, input_relu: bool = False) -> torch.Tensor:
+    """3x3 stride-1 NHWC conv with replicate padding and fp32 accumulation.
+
+    ``kernel``: (3, 3, C, O) in the input dtype; ``bias``: fp32 (O,) or None;
+    ``residual``: (B, H, W, O) added in fp32 before the rounding;
+    ``input_relu``: ReLU on the input (exact: it commutes with the padding).
+    CUDA tensors run kernel K3; CPU tensors run ``conv3x3_plain``."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, kernel, bias, residual, input_relu)
+    _build.require_cuda_tensor(x, "conv3x3_replicate")
+    return _launch(x, kernel, bias, residual, input_relu)
+
+
+# bilinear 2x (half-pixel, edge-clamped) row coefficients per (output parity
+# a, conv row tap du): list of (input offset di, weight). Same for columns.
+_UP2_TAPS = {
+    (0, 0): [(-1, 0.75), (0, 0.25)],
+    (0, 1): [(-1, 0.25), (0, 0.75)],
+    (0, 2): [(0, 0.75), (1, 0.25)],
+    (1, 0): [(-1, 0.25), (0, 0.75)],
+    (1, 1): [(0, 0.75), (1, 0.25)],
+    (1, 2): [(0, 0.25), (1, 0.75)],
+}
+
+
+def up2_conv3_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """Compose a bilinear 2x upsample (align_corners=False) with a 3x3 conv.
+
+    (3, 3, C, O) -> (3, 3, C, 2, 2, O): taps over the LOW-res input producing
+    the 4 output parities. Exact, edges included: the upsample's edge clamp
+    and the conv's replicate pad both reduce to clamping low-res indices."""
+    C, O = kernel.shape[2], kernel.shape[3]
+    w = torch.zeros((3, 3, C, 2, 2, O), dtype=kernel.dtype, device=kernel.device)
+    for a in range(2):
+        for b in range(2):
+            for du in range(3):
+                for dv in range(3):
+                    for di, ar in _UP2_TAPS[(a, du)]:
+                        for dj, ac in _UP2_TAPS[(b, dv)]:
+                            w[di + 1, dj + 1, :, a, b, :] += ar * ac * kernel[du, dv]
+    return w
+
+
+def depth_to_space2(y: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 4*O) parity-packed channels (a, b, o) -> (B, 2H, 2W, O)."""
+    B, H, W, C4 = y.shape
+    O = C4 // 4
+    return y.reshape(B, H, W, 2, 2, O).permute(0, 1, 3, 2, 4, 5).reshape(B, 2 * H, 2 * W, O)
+
+
+def up2_conv3_expanded(kernel: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
+    """(3, 3, C, O) kernel and (O,) bias of a conv that follows a bilinear 2x
+    upsample -> the K3 operands of the fused form: (3, 3, C, 4*O) parity
+    weights in ``dtype`` (expanded in fp32, cast last) and the (4*O,) fp32 bias."""
+    C, O = kernel.shape[2], kernel.shape[3]
+    wq = up2_conv3_weights(kernel.float()).reshape(3, 3, C, 4 * O).to(dtype).contiguous()
+    return wq, bias.float().repeat(4).contiguous()
+
+
+def conv3x3_up2_bilinear(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Bilinear-2x upsample then replicate-pad 3x3 conv, as one K3 conv at the
+    low resolution over parity-expanded weights plus a depth-to-space."""
+    return depth_to_space2(conv3x3_replicate(x, *up2_conv3_expanded(kernel, bias, x.dtype)))

@@ -1,0 +1,121 @@
+"""Kernels K1-K3 on the card against their plain versions, in fp32 and bf16,
+at small ragged shapes, and the tiny MoGe-2 decode on the card against the
+CPU. Needs a CUDA GPU and nvcc (the kernels have no CPU mode); skipped
+elsewhere. On a GPU host:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+
+(``--noconftest``: tests/conftest.py configures JAX, which a GPU host need
+not have. This file imports no JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from moge_tpu_torch.ops import attention, conv, norm
+from torch_tiny_config import TINY_CONFIG
+
+pytestmark = pytest.mark.cuda
+
+FP32_TOL = 1e-5   # fp32 kernel vs fp32 plain version: summation order only
+K2_BF16_ABS = 2e-2
+K3_BF16_REL = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(37, 192), (5, 1000), (130, 2048)])
+def test_layer_norm(dev, dtype, m, d):
+    g = _gen(dev, m + d)
+    x = (torch.randn(m, d, device=dev, generator=g) * 3 + 1).to(dtype)
+    s, b = torch.randn(d, device=dev, generator=g), torch.randn(d, device=dev, generator=g)
+    got = norm.layer_norm_fp32(x, s, b).float()
+    want = norm.layer_norm_plain(x.float(), s, b)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    else:  # one bf16 rounding of the fp32 result
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        assert bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nkv,h,kv_valid", [(2, 77, 77, 3, None), (1, 130, 200, 2, 150), (1, 64, 64, 1, 1)])
+def test_flash_attention(dev, dtype, b, nq, nkv, h, kv_valid):
+    g = _gen(dev, nq * nkv)
+    qkv = torch.randn(b, nkv, 3, h, 64, device=dev, generator=g).to(dtype)
+    q = (torch.randn(b, nq, h, 64, device=dev, generator=g) * 2).to(dtype)
+    k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, as the encoder passes them
+    out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+    want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=FP32_TOL, atol=FP32_TOL)
+    else:
+        assert (out.float() - want).abs().max().item() <= K2_BF16_ABS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,relu,use_res", [
+    ((2, 7, 5, 24, 20), True, True), ((1, 1, 1, 8, 12), False, False),
+    ((1, 37, 53, 64, 64), True, False), ((1, 9, 70, 130, 70), False, True)])
+def test_conv3x3(dev, dtype, shape, relu, use_res):
+    b, h, w, c, o = shape
+    g = _gen(dev, sum(shape))
+    x = torch.randn(b, h, w, c, device=dev, generator=g).to(dtype)
+    k = (torch.randn(3, 3, c, o, device=dev, generator=g) * (9 * c) ** -0.5).to(dtype)
+    bias = torch.randn(o, device=dev, generator=g)
+    res = torch.randn(b, h, w, o, device=dev, generator=g).to(dtype) if use_res else None
+    got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
+    want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL * want.abs().max().item())
+    else:
+        assert (got - want).abs().max().item() <= K3_BF16_REL * want.abs().max().item()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.randn(4, 6, 5, 8, device=dev)
+    with pytest.raises(ValueError):
+        conv.conv3x3_replicate(x.permute(0, 2, 1, 3), torch.randn(3, 3, 8, 4, device=dev), None)
+    with pytest.raises(ValueError):  # head dim 32: the kernel takes 64
+        q = torch.randn(1, 9, 2, 32, device=dev)
+        attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        norm.layer_norm_fp32(torch.randn(3, 4096, device=dev), torch.ones(4096, device=dev),
+                             torch.zeros(4096, device=dev))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_tiny_decode_on_card_matches_cpu(dev, dtype, rtol):
+    """Relative L2 per raw map: fp32 on the card within summation order of the
+    CPU; bf16 within the bf16 rounding through 4 blocks and the decoder."""
+    from moge_tpu_torch.models.v2 import MoGeModel
+
+    gpu = MoGeModel(TINY_CONFIG, dev, torch.float32).init_random(seed=0)
+    cpu = MoGeModel(TINY_CONFIG, "cpu", torch.float32)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
+    image = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 56, 112, 3)).astype(np.float32))
+    launches = (norm.LAUNCHES, attention.LAUNCHES, conv.LAUNCHES)
+    with torch.inference_mode():
+        got = gpu.module.decode(image.to(dev), 4, 8, 2.0, dtype)
+        want = cpu.module.decode(image, 4, 8, 2.0, torch.float32)
+    # per forward: 2 LayerNorms per block + 1 per taken layer; 1 attention per
+    # block; per ConvStack 2 convs per res block + 1 per resampler (4 stacks)
+    counts = (norm.LAUNCHES - launches[0], attention.LAUNCHES - launches[1], conv.LAUNCHES - launches[2])
+    assert counts == (2 * 4 + 4, 4, 4 * (2 * 3 + 4))
+    for key in want:
+        a, b = got[key].float().cpu(), want[key]
+        assert ((a - b).norm() / b.norm()).item() <= rtol, key
