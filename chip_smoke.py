@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe-2 inference once on one CUDA GPU and check it.
+"""Drive the PyTorch port's MoGe-2 inference and training on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
 
 1. device: require CUDA, print the card's name and power limit, disable TF32;
-2. build the hand-written kernels from ``moge_tpu_torch/csrc``;
+2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes plus ragged edges, with errors and median times;
-4. the slice at full width: ``moge-2-vitl-normal`` with random weights from a
-   seed, bf16, four ``infer`` requests, launch counters per forward;
-5. whole-model parity: ``moge-2-vits-normal`` decode, bf16 with the kernels on
-   the card against fp32 with the plain versions on the CPU.
+   paths' shapes plus ragged edges, with errors and median times: K1-K3 (and
+   K2's logsumexp), then the flash backward K2b-dq/K2b-dkv (bf16 and fp32)
+   and the dense align objective K4 at the v2 loss shapes;
+4. inference at full width: ``moge-2-vitl-normal`` with random weights from
+   a seed, bf16, four ``infer`` requests, launch counters per forward;
+5. inference parity: ``moge-2-vits-normal`` decode, bf16 with the kernels on
+   the card against fp32 with the plain versions on the CPU;
+6. training at full width: ``configs/train/v2.json`` (model, optimizer, LR
+   schedule, label type A losses), random weights from a seed, bf16 compute
+   with fp32 parameters, batch 2 at 512x512, three ``make_train_step`` steps
+   at 1369 and at 3600 tokens, launch counters per step, step time and peak
+   memory;
+7. training parity: ``moge-2-vits-normal``, one fp32 grad step on the card
+   (kernels) against the CPU (plain versions) from the same weights, batch
+   and random draws: loss, every alignment solve and the gradients.
 
 Prints a JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. No CPU fallback: without a
@@ -30,10 +40,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+DEVICE = "cuda:0"  # the one card every phase runs on
 # rtol of the relative L2 error of each raw map (bf16 on the card vs fp32 on the CPU)
 MODEL_L2_RTOL = 3e-2
 K2_MAX_ABS = 2e-2
+K2_LSE_ABS = 1e-3  # fp32 logsumexp of the same bf16 products, summed in another order
 K3_REL = 1e-2
+# K2b vs autograd through the plain version in fp32, relative to the largest
+# gradient: bf16 rounds P and dS before their products (as on the TPU); fp32
+# differs in summation order only
+K2B_REL = {"bfloat16": 3e-2, "float32": 1e-4}
+K4_REL = 2e-5  # fp32 sums of up to 6912 terms in another order (and fma), relative to max |F|
+TRAIN_CONFIG = ROOT / "configs" / "train" / "v2.json"
+TRAIN_TOKENS = (1369, 3600)
+TRAIN_STEPS = 3
+TRAIN_HW = (512, 512)
+# training parity, fp32 on the card vs fp32 on the CPU: loss, solver scale and
+# shift (relative), gradients (relative L2 over all parameters)
+PARITY_LOSS_RTOL = 1e-4
+PARITY_SOLVE_RTOL = 1e-4
+PARITY_GRAD_RTOL = 1e-3
 
 
 def log(*args):
@@ -90,7 +116,7 @@ def phase_kernels():
 
     from moge_tpu_torch.ops import attention, conv, norm
 
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
 
@@ -122,15 +148,19 @@ def phase_kernels():
     for n, kv_valid in ((1370, None), (3601, None), (1201, None), (1370, 1000)):
         qkv = randn(1, n, 3, 16, 64)
         q, k, v = qkv[:, :, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
-        got = attention.flash_attention(q, k, v, kv_valid).float()
-        want = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid)
-        err = (got - want).abs().max().item()
+        got, got_lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+        want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid, return_lse=True)
+        err = (got.float() - want).abs().max().item()
+        lse_err = (got_lse - want_lse).abs().max().item()
         ms = cuda_ms(lambda: attention.flash_attention(q, k, v, kv_valid))
         plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, kv_valid))
         log(f"[K2] B=1 H=16 N={n} kv_valid={kv_valid or n}: max_abs_err {err:.3e} (tol {K2_MAX_ABS}), "
-            f"out max {want.abs().max().item():.3f}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"lse max_abs_err {lse_err:.3e} (tol {K2_LSE_ABS}), out max {want.abs().max().item():.3f}, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if not err <= K2_MAX_ABS:
             raise AssertionError(f"K2 flash attention disagrees at N={n}: {err} > {K2_MAX_ABS}")
+        if not lse_err <= K2_LSE_ABS:
+            raise AssertionError(f"K2 logsumexp disagrees at N={n}: {lse_err} > {K2_LSE_ABS}")
         k2.append((err, ms, plain_ms))
     results["flash_attention"] = k2
 
@@ -162,8 +192,93 @@ def phase_kernels():
     return results
 
 
+def phase_kernels_train():
+    """K2b-dq, K2b-dkv and K4 against their plain versions on the card."""
+    import torch
+
+    from moge_tpu_torch.ops import alignment, attention
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    results = {"flash_attention_dq": [], "flash_attention_dkv": [], "dense_align": []}
+
+    # K2b at the ViT token counts, q/k/v strided views of one qkv projection;
+    # "plain" is autograd's backward through attention_plain (graph built once)
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, kv_valid in ((1370, 1370), (3601, 3601), (1370, 1000)):
+            qkv = torch.randn(2, n, 3, 16, 64, generator=gen, device=dev).to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            dout = torch.randn(2, n, 16, 64, generator=gen, device=dev).to(dtype)
+            out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+            delta = attention.attention_bwd_delta(out, dout)
+            dq = attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid)
+            dk, dv = attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid)
+            leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(attention.attention_plain(*leaves, kv_valid), leaves, dout.float())
+            tol = K2B_REL[str(dtype).split(".")[-1]] * max(w.abs().max().item() for w in want)
+            err_dq = (dq.float() - want[0]).abs().max().item()
+            err_dkv = max((g.float() - w).abs().max().item() for g, w in zip((dk, dv), want[1:]))
+            ms_dq = cuda_ms(lambda: attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid))
+            ms_dkv = cuda_ms(lambda: attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid))
+            plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
+            plain_out = attention.attention_plain(*plain_in, kv_valid)
+            plain_dq = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_in[0], dout, retain_graph=True), 10)
+            plain_dkv = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_in[1:], dout, retain_graph=True), 10)
+            del plain_out, plain_in
+            label = f"B=2 H=16 N={n} kv_valid={kv_valid} {str(dtype).split('.')[-1]}"
+            log(f"[K2b] {label}: dq max_abs_err {err_dq:.3e}, dk/dv max_abs_err {err_dkv:.3e} (tol {tol:.3e}); "
+                f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms; dk/dv kernel {ms_dkv:.4f} ms, "
+                f"plain {plain_dkv:.4f} ms")
+            if not (err_dq <= tol and err_dkv <= tol):
+                raise AssertionError(f"K2b flash backward disagrees at {label}: {err_dq}, {err_dkv} > {tol}")
+            if kv_valid < n and (dk[:, kv_valid:].any() or dv[:, kv_valid:].any()):
+                raise AssertionError(f"K2b: masked keys got nonzero dk/dv at {label}")
+            results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq))
+            results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv))
+            torch.cuda.empty_cache()
+
+    # K4 at the v2 loss shapes (batch 2): rows bounded to ~2^32 pairs for the
+    # comparison and the plain version's time; the kernel also at full rows
+    for length, full_rows in loss_solve_shapes(json.loads(TRAIN_CONFIG.read_text())["loss"]["A"], 2):
+        rows = min(full_rows, 2 ** 32 // length ** 2)
+        A, wx, wy = torch.randn(3, rows, length, generator=gen, device=dev).unbind(0)
+        got = alignment.dense_objective(A, wx, wy, 1.0)
+        want = alignment.dense_objective_plain(A, wx, wy, 1.0)
+        err = (got - want).abs().max().item()
+        tol = K4_REL * want.abs().max().item()
+        ms = cuda_ms(lambda: alignment.dense_objective(A, wx, wy, 1.0))
+        plain_ms = cuda_ms(lambda: alignment.dense_objective_plain(A, wx, wy, 1.0), 5)
+        A, wx, wy = torch.randn(3, full_rows, length, generator=gen, device=dev).unbind(0)
+        full_ms = cuda_ms(lambda: alignment.dense_objective(A, wx, wy, 1.0), 5)
+        log(f"[K4] L={length} rows={rows}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms; full rows={full_rows}: kernel {full_ms:.4f} ms "
+            f"({full_rows * length ** 2 / full_ms / 1e9:.3f} Tpair/s)")
+        if not err <= tol:
+            raise AssertionError(f"K4 dense objective disagrees at L={length}: {err} > {tol}")
+        results["dense_align"].append((err, ms, plain_ms))
+        del A, wx, wy
+    torch.cuda.synchronize()
+    return results
+
+
+def loss_solve_shapes(loss_table, batch: int):
+    """(candidate length L, rows R) of each truncated solve of a label type's
+    loss table: the global loss solves batch x align_resolution^2 anchors, a
+    local loss batch x num_patches x align_resolution^2; L = 3 x align_resolution^2."""
+    shapes = []
+    for spec in loss_table.values():
+        p = spec.get("params", {})
+        if spec["function"] == "affine_invariant_global_loss":
+            n = p.get("align_resolution", 64) ** 2
+            shapes.append((3 * n, batch * n))
+        elif spec["function"] == "affine_invariant_local_loss":
+            n = p.get("align_resolution", 32) ** 2
+            shapes.append((3 * n, batch * p.get("num_patches", 16) * n))
+    return shapes
+
+
 def expected_launches(config) -> dict:
-    """Kernel launches per forward implied by a MoGe-2 config."""
+    """Kernel launches per inference forward implied by a MoGe-2 config."""
     from moge_tpu_torch.models.dinov2 import VIT_ARCHS
 
     vit = VIT_ARCHS[config["encoder"]["backbone"]]
@@ -174,19 +289,42 @@ def expected_launches(config) -> dict:
         stack = config.get(name)
         if stack is not None:
             convs += 2 * sum(stack["num_res_blocks"]) + len(stack["dim_res_blocks"]) - 1
-    return {"layer_norm": 2 * vit.depth + n_take, "flash_attention": vit.depth, "conv3x3": convs}
+    return {"layer_norm": 2 * vit.depth + n_take, "flash_attention": vit.depth, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, "conv3x3": convs, "dense_align": 0}
+
+
+def expected_train_launches(config, loss_config) -> dict:
+    """Kernel launches per train step implied by a MoGe-2 config and a loss
+    config: one forward (K1, K2, K3), the flash backward per block (K2b-dq,
+    K2b-dkv; K1 and K3 backward in plain PyTorch), and one K4 per truncated
+    alignment solve: the global loss's, and the local losses' (one batched
+    solve when they share trunc and align_resolution, else one each)."""
+    from moge_tpu_torch.models.dinov2 import VIT_ARCHS
+
+    counts = expected_launches(config)
+    depth = VIT_ARCHS[config["encoder"]["backbone"]].depth
+    entries = {name: spec for table in loss_config.values() for name, spec in table.items()}
+    local = [spec.get("params", {}) for spec in entries.values() if spec["function"] == "affine_invariant_local_loss"]
+    shared = len(local) >= 2 and len({(p.get("trunc", 1.0), p.get("align_resolution", 32)) for p in local}) == 1
+    n_global = sum(spec["function"] == "affine_invariant_global_loss" for spec in entries.values())
+    counts.update(flash_attention_dq=depth, flash_attention_dkv=depth,
+                  dense_align=n_global + (1 if shared else len(local)))
+    return counts
 
 
 def reset_counts():
-    from moge_tpu_torch.ops import attention, conv, norm
+    from moge_tpu_torch.ops import alignment, attention, conv, norm
 
-    norm.LAUNCHES = attention.LAUNCHES = conv.LAUNCHES = 0
+    norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
+    conv.LAUNCHES = alignment.LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from moge_tpu_torch.ops import attention, conv, norm
+    from moge_tpu_torch.ops import alignment, attention, conv, norm
 
-    return {"layer_norm": norm.LAUNCHES, "flash_attention": attention.LAUNCHES, "conv3x3": conv.LAUNCHES}
+    return {"layer_norm": norm.LAUNCHES, "flash_attention": attention.LAUNCHES,
+            "flash_attention_dq": attention.DQ_LAUNCHES, "flash_attention_dkv": attention.DKV_LAUNCHES,
+            "conv3x3": conv.LAUNCHES, "dense_align": alignment.LAUNCHES}
 
 
 def phase_slice(card: str):
@@ -202,9 +340,9 @@ def phase_slice(card: str):
     config = get_preset("moge-2-vitl-normal")["config"]
     expect = expected_launches(config)
     t0 = time.perf_counter()
-    model = MoGeModel(config, device="cuda:0", dtype=torch.bfloat16).init_random(seed=SEED)
+    model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
     torch.cuda.synchronize()
-    log(f"[slice] moge-2-vitl-normal init_random(seed={SEED}) on cuda:0 in {time.perf_counter() - t0:.1f}s")
+    log(f"[slice] moge-2-vitl-normal init_random(seed={SEED}) on {DEVICE} in {time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(SEED)
     requests = [("518x518 num_tokens=1369", (518, 518), dict(num_tokens=1369)),
                 ("518x518 resolution_level=9", (518, 518), dict()),
@@ -213,7 +351,7 @@ def phase_slice(card: str):
     counts_seen = []
     latencies = {}
     for label, (h, w), kwargs in requests:
-        image = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32)).to("cuda:0")
+        image = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32)).to(DEVICE)
         reset_counts()
         out = model.infer(image, **kwargs)
         torch.cuda.synchronize()
@@ -261,13 +399,13 @@ def phase_parity():
     from moge_tpu_torch.ops.resize import resize_2d
 
     config = get_preset("moge-2-vits-normal")["config"]
-    gpu = MoGeModel(config, device="cuda:0", dtype=torch.bfloat16).init_random(seed=SEED)
+    gpu = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
     cpu = MoGeModel(config, device="cpu", dtype=torch.float32)
     cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
     image = torch.from_numpy(np.random.default_rng(SEED + 1).uniform(0, 1, (1, 518, 518, 3)).astype(np.float32))
     image_14 = resize_2d(image, (37 * 14, 37 * 14), mode="bilinear", antialias=True)
     with torch.inference_mode():
-        got = gpu.module.decode(image_14.to("cuda:0"), 37, 37, 1.0, torch.bfloat16)
+        got = gpu.module.decode(image_14.to(DEVICE), 37, 37, 1.0, torch.bfloat16)
         want = cpu.module.decode(image_14, 37, 37, 1.0, torch.float32)
     for key in sorted(want):
         a, b = got[key].float().cpu(), want[key]
@@ -277,13 +415,201 @@ def phase_parity():
             raise AssertionError(f"{key}: bf16-on-card vs fp32-on-CPU relative L2 {rel} > {MODEL_L2_RTOL}")
 
 
+def train_batch(rng, batch: int, hw, label_type_idx: int, device):
+    """A seeded training batch shaped like ``__graft_entry__.dryrun_multichip``'s:
+    smooth depth surfaces (so the local losses find 3D neighbours), ~10%
+    invalid depth, unit normals, one label type for every instance."""
+    import numpy as np
+    import torch
+
+    h, w = hw
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    depth = np.stack([2 + 0.5 * np.sin(3 * xx + rng.uniform(0, 6)) + 0.3 * yy for _ in range(batch)])
+    depth = depth + 0.01 * rng.standard_normal(depth.shape)
+    fin = rng.uniform(0, 1, (batch, h, w)) > 0.1
+    normal = rng.standard_normal((batch, h, w, 3))
+    out = {
+        "image": rng.uniform(0, 1, (batch, h, w, 3)),
+        "depth": depth,
+        "normal": normal / np.linalg.norm(normal, axis=-1, keepdims=True),
+        "normal_mask": np.ones((batch, h, w), bool),
+        "depth_mask_fin": fin,
+        "depth_mask_inf": ~fin & (rng.uniform(0, 1, (batch, h, w)) > 0.5),
+        "intrinsics": np.broadcast_to(np.asarray([[1.0, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1.0]]), (batch, 3, 3)),
+        "label_type_idx": np.full((batch,), label_type_idx, np.int64),
+        "is_metric": np.ones((batch,), bool),
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32 if v.dtype == np.float64 else v.dtype)).to(device)
+            for k, v in out.items()}
+
+
+def phase_train(card: str):
+    """configs/train/v2.json at full width: moge-2-vitl-normal, random weights,
+    bf16 compute with fp32 parameters, label type A, batch 2 at 512x512, three
+    train steps at each token count."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.v2 import MoGeV2
+    from moge_tpu_torch.train.step import init_train_state, make_grad_step, make_train_step
+    from moge_tpu_torch.train.utils import build_optimizer
+
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    dev = torch.device(DEVICE)
+    with dev:
+        module = MoGeV2(**cfg["model"]).init_random(seed=SEED)
+    tx = build_optimizer(module, cfg["optimizer"], cfg["lr_scheduler"])
+    state = init_train_state(module, tx)
+    label_types = list(cfg["loss"])
+    lt_a = label_types.index("A")
+    expect = expected_train_launches(cfg["model"], cfg["loss"])
+    trainable = {n: p for n, p in module.named_parameters() if p.requires_grad}
+    before = {n: p.detach().clone() for n, p in trainable.items()}
+    ema_before = {n: e.clone() for n, e in state.ema_params.items()}
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    log(f"[train] moge-2-vitl-normal, {sum(p.numel() for p in trainable.values())} trainable fp32 parameters, "
+        f"bf16 compute; label type A losses {sorted(cfg['loss']['A'])}; expected launches per step {expect}")
+    steps, total_counts = [], {k: 0 for k in expect}
+    for num_tokens in TRAIN_TOKENS:
+        train_step = make_train_step(module, tx, cfg["loss"], label_types, num_tokens, dtype=torch.bfloat16)
+        for i in range(TRAIN_STEPS):
+            batch = train_batch(rng, 2, TRAIN_HW, lt_a, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            total = float(metrics["total"])
+            log(f"[train] {num_tokens} tokens step {i}: total {total:.5f}, grads_ok {float(metrics['grads_ok'])}, "
+                f"global {float(metrics['global']):.4f}, patch_4/16/64 {float(metrics['patch_4']):.4f}/"
+                f"{float(metrics['patch_16']):.4f}/{float(metrics['patch_64']):.4f}, "
+                f"step {wall_ms:.1f} ms, peak {peak_gib:.2f} GiB ({card}); launches {counts}")
+            if not np.isfinite(total):
+                raise AssertionError(f"non-finite training loss {total} at {num_tokens} tokens, step {i}")
+            if float(metrics["grads_ok"]) != 1.0:
+                raise AssertionError(f"non-finite gradients (update skipped) at {num_tokens} tokens, step {i}")
+            if counts != expect:
+                raise AssertionError(f"train step launches {counts}, expected {expect}")
+            for k in total_counts:
+                total_counts[k] += counts[k]
+            steps.append({"num_tokens": num_tokens, "step": i, "ms": wall_ms, "peak_gib": peak_gib, "loss": total})
+    if state.step != len(TRAIN_TOKENS) * TRAIN_STEPS or tx.count != state.step:
+        raise AssertionError(f"step count {state.step}, optimizer updates {tx.count}")
+
+    # parameters move where their group's LR was nonzero (the v2 warm-up holds
+    # the backbone at 0 for its first 1000 updates); the EMA follows them
+    lr_groups = {n: gi for gi, names in enumerate(tx.groups) for n in names}
+    lrs_used = [max(base * (1.0 if s is None else s(c)) for c in range(tx.count))
+                for base, s in zip(tx.base_lrs, tx.schedules)]
+    for n, p in trainable.items():
+        changed = not torch.equal(p.detach(), before[n])
+        if changed != (lrs_used[lr_groups[n]] > 0):
+            raise AssertionError(f"{n}: changed={changed} with learning rates up to {lrs_used[lr_groups[n]]}")
+        if changed and torch.equal(state.ema_params[n], ema_before[n]):
+            raise AssertionError(f"{n}: EMA does not follow the parameter")
+
+    # every trainable parameter gets a finite, nonzero gradient (the backbone's
+    # through K2b and the cast weights), also where the LR holds it still
+    grads, _ = make_grad_step(module, cfg["loss"], label_types, TRAIN_TOKENS[0], torch.bfloat16)(
+        train_batch(rng, 2, TRAIN_HW, lt_a, dev), gen)
+    bad = [n for n, g in grads.items() if not (torch.isfinite(g).all() and g.abs().sum() > 0)]
+    if bad:
+        raise AssertionError(f"{len(bad)} trainable parameters without a finite nonzero gradient: {bad[:5]}")
+    log(f"[train] {len(grads)} trainable parameters all got finite nonzero gradients; "
+        f"{sum(lrs_used[lr_groups[n]] > 0 for n in trainable)} moved (nonzero LR) and their EMA followed")
+    return total_counts, steps
+
+
+def phase_train_parity():
+    """moge-2-vits-normal, one fp32 grad step: kernels on the card vs plain
+    versions on the CPU, same weights, batch and random draws."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import MoGeV2
+    from moge_tpu_torch.ops import alignment
+    from moge_tpu_torch.train import losses
+    from moge_tpu_torch.train.step import make_grad_step
+
+    # label type A's losses with the align resolutions reduced to 16/8/6/4
+    # (from 48/24/12/6) and the patches to 4/16/64 per image (from
+    # 16/256/4096), for a 224x224 image at 256 tokens
+    loss = {"invalid": {}, "A": copy.deepcopy(json.loads(TRAIN_CONFIG.read_text())["loss"]["A"])}
+    for name, res, patches in (("global", 16, None), ("patch_4", 8, 4), ("patch_16", 6, 16), ("patch_64", 4, 64)):
+        loss["A"][name]["params"]["align_resolution"] = res
+        if patches:
+            loss["A"][name]["params"]["num_patches"] = patches
+    config = get_preset("moge-2-vits-normal")["config"]
+    with torch.device(DEVICE):
+        gpu = MoGeV2(**config).init_random(seed=SEED)
+    cpu = MoGeV2(**config)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True)
+    batch = train_batch(np.random.default_rng(SEED + 3), 2, (224, 224), 1, "cpu")
+
+    recorded, original_draw = [], losses.draw
+
+    def record(gen, what, arg, size):
+        value = original_draw(gen, what, arg, size)
+        recorded.append(value)
+        return value
+
+    runs = []
+    try:
+        for module, dev, draw in ((cpu, "cpu", record), (gpu, DEVICE, lambda *a: recorded.pop(0))):
+            losses.draw = draw
+            alignment.SOLVES = []
+            grads, metrics = make_grad_step(module, loss, ["invalid", "A"], 256, torch.float32)(
+                {k: v.to(dev) for k, v in batch.items()}, torch.Generator().manual_seed(SEED))
+            runs.append((grads, metrics, alignment.SOLVES))
+    finally:
+        losses.draw, alignment.SOLVES = original_draw, None
+    (g_cpu, m_cpu, s_cpu), (g_gpu, m_gpu, s_gpu) = runs
+
+    loss_rel = abs(float(m_gpu["total"]) - float(m_cpu["total"])) / abs(float(m_cpu["total"]))
+    log(f"[train-parity] total loss card {float(m_gpu['total']):.7f} vs CPU {float(m_cpu['total']):.7f}: "
+        f"relative {loss_rel:.3e} (tol {PARITY_LOSS_RTOL})")
+    if not loss_rel <= PARITY_LOSS_RTOL:
+        raise AssertionError(f"training loss card vs CPU relative {loss_rel} > {PARITY_LOSS_RTOL}")
+    if len(s_gpu) != len(s_cpu) or not s_cpu:
+        raise AssertionError(f"{len(s_gpu)} alignment solves on the card, {len(s_cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(s_gpu, s_cpu)):
+        a = [t.cpu() for t in a]
+        for j, what in ((2, "anchor"), (3, "second index")):
+            if not torch.equal(a[j], b[j]):
+                raise AssertionError(f"solve {i}: {int((a[j] != b[j]).sum())} of {b[j].numel()} {what}s differ")
+        rel = max(((x - y).norm() / y.norm().clamp_min(1e-12)).item() for x, y in zip(a[:2], b[:2]))
+        log(f"[train-parity] solve {i}: {b[2].numel()} rows, same anchors and indices, scale/shift relative L2 "
+            f"{rel:.3e} (tol {PARITY_SOLVE_RTOL})")
+        if not rel <= PARITY_SOLVE_RTOL:
+            raise AssertionError(f"solve {i}: scale/shift relative L2 {rel} > {PARITY_SOLVE_RTOL}")
+    num = sum((g_gpu[k].cpu() - g_cpu[k]).square().sum() for k in g_cpu)
+    den = sum(g.square().sum() for g in g_cpu.values())
+    grad_rel = (num / den).sqrt().item()
+    log(f"[train-parity] gradients of {len(g_cpu)} parameters: relative L2 {grad_rel:.3e} (tol {PARITY_GRAD_RTOL})")
+    if not grad_rel <= PARITY_GRAD_RTOL:
+        raise AssertionError(f"gradients card vs CPU relative L2 {grad_rel} > {PARITY_GRAD_RTOL}")
+
+
 KERNELS = [
     ("layer_norm", "moge_tpu_torch/csrc/layernorm.cu", "moge_tpu/ops/norm.py:40"),
     ("flash_attention", "moge_tpu_torch/csrc/flash_attn.cu", "moge_tpu/ops/attention.py:57"),
+    ("flash_attention_dq", "moge_tpu_torch/csrc/flash_attn_bwd.cu", "moge_tpu/ops/attention.py:124"),
+    ("flash_attention_dkv", "moge_tpu_torch/csrc/flash_attn_bwd.cu", "moge_tpu/ops/attention.py:154"),
     ("conv3x3", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:132"),
+    ("dense_align", "moge_tpu_torch/csrc/dense_align.cu", "moge_tpu/ops/alignment.py:90"),
 ]
-# which phase-3 case carries the reported time: the 1369-token main-path shape
-REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "conv3x3": 3}
+# which phase-3 case carries the reported time: the 1369-token shape (bf16),
+# and for K4 the global loss's L = 6912
+REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+               "conv3x3": 3, "dense_align": 0}
 
 
 def main() -> int:
@@ -294,17 +620,19 @@ def main() -> int:
         raise RuntimeError(f"moge_tpu_torch/ not found beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
     phase_build()
-    kernel_results = phase_kernels()
-    launches, latencies = phase_slice(card)
+    kernel_results = {**phase_kernels(), **phase_kernels_train()}
+    infer_launches, latencies = phase_slice(card)
     phase_parity()
+    train_launches, train_steps = phase_train(card)
+    phase_train_parity()
     kernels = []
     for name, source, replaces in KERNELS:
         cases = kernel_results[name]
         _, ms, plain_ms = cases[REPORT_CASE[name]]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": max(c[0] for c in cases),
-                        "ms": ms, "plain_ms": plain_ms})
-    print(json.dumps({"kernels": kernels, "infer_ms": latencies}))
+                        "launches": train_launches[name], "infer_launches": infer_launches[name],
+                        "max_abs_err": max(c[0] for c in cases), "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": kernels, "infer_ms": latencies, "train_steps": train_steps}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

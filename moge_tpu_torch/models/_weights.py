@@ -1,10 +1,14 @@
-"""Derived weights cached on a module.
+"""Derived weights of a module: cached for inference, differentiable for training.
 
 Parameters stay fp32 (as the JAX package keeps them); compute casts them
 to the activation dtype, and the decoder expands some of them (folded and
-parity-expanded up2 conv weights). ``derived`` computes such a tensor once
-and reuses it until one of its source parameters changes (in-place update,
-``load_state_dict`` or a move to another device).
+parity-expanded up2 conv weights). Under ``torch.no_grad()`` or
+``torch.inference_mode()`` ``derived`` computes such a tensor once and
+reuses it until one of its source parameters changes (in-place update,
+``load_state_dict`` or a move to another device). With grad mode on and a
+source parameter that requires grad, it recomputes the tensor on every call
+under autograd, so gradients reach the parameters and no cached tensor
+outlives a parameter update.
 """
 
 from __future__ import annotations
@@ -17,9 +21,12 @@ from torch import nn
 
 def derived(module: nn.Module, key: Hashable, fn: Callable[..., Any], *params: torch.Tensor,
             tag: Hashable = None) -> Any:
-    """``fn(*params)`` under no_grad, memoized on ``module`` under ``key``.
-    A different ``tag`` (e.g. the shape it was built for) replaces the entry,
-    so each key holds one tensor."""
+    """``fn(*params)``: under autograd when grad mode is on and a parameter
+    requires grad, else memoized on ``module`` under ``key``. A different
+    ``tag`` (e.g. the shape it was built for) replaces the entry, so each key
+    holds one tensor."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return fn(*params)
     stamp = (tag, tuple((p._version, p.data_ptr(), p.device) for p in params))
     cache = module.__dict__.setdefault("_derived", {})
     hit = cache.get(key)
@@ -31,7 +38,7 @@ def derived(module: nn.Module, key: Hashable, fn: Callable[..., Any], *params: t
 
 
 def cast(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """Parameter ``name`` of ``module`` in ``dtype`` (cached copy when it differs)."""
+    """Parameter ``name`` of ``module`` in ``dtype`` (a cached copy for inference when it differs)."""
     p = getattr(module, name)
     if p.dtype == dtype:
         return p

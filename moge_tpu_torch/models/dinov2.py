@@ -7,8 +7,8 @@ names are the torch DINOv2 state-dict names, so a reference checkpoint (or
 ``moge_tpu.models.convert.export_dinov2_backbone``) loads strictly.
 
 Activations are (B, N, D) tokens; images NHWC. LayerNorm runs kernel K1 and
-attention kernel K2 on the card. GELU is the tanh approximation under bf16
-and exact erf in fp32, as in the JAX package.
+attention kernel K2 (backward: K2b-dq, K2b-dkv) on the card. GELU is the
+tanh approximation under bf16 and exact erf in fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention_qkv
 from ..ops.norm import layer_norm_fp32
 from ..ops.resize import resize_2d
 from ._weights import cast, derived
@@ -51,7 +51,7 @@ VIT_ARCHS = {
 
 
 class Linear(nn.Linear):
-    """nn.Linear whose fp32 parameters are cast (once, cached) to the input dtype."""
+    """nn.Linear whose fp32 parameters are cast to the input dtype (cached for inference)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, cast(self, "weight", x.dtype), cast(self, "bias", x.dtype))
@@ -89,8 +89,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, dim = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.num_heads, dim // self.num_heads)
-        # q/k/v are strided (B, N, H, 64) views: the kernel reads them in place
-        out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        # the kernels read q/k/v as strided (B, N, H, 64) views of qkv and
+        # write its gradient the same way
+        out = flash_attention_qkv(qkv)
         return self.proj(out.reshape(b, n, dim))
 
 
@@ -150,7 +151,8 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(config.patch_size, dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, config.pos_grid ** 2 + 1, dim))
-        self.mask_token = nn.Parameter(torch.zeros(1, dim))  # unused by MoGe; kept for the checkpoint layout
+        # unused by MoGe (so not trained); kept for the checkpoint layout
+        self.mask_token = nn.Parameter(torch.zeros(1, dim), requires_grad=False)
         mlp_hidden = int(dim * config.mlp_ratio)
         self.blocks = nn.ModuleList(Block(dim, config.num_heads, mlp_hidden) for _ in range(config.depth))
         self.norm = LayerNorm(dim)

@@ -4,7 +4,8 @@ The parts the MoGe-2 presets use: the DINOv2 encoder wrapper, residual
 conv blocks without norms, the ``conv_transpose`` and ``bilinear``
 resamplers, the MLP, the per-level UV maps and the ConvStack pyramid with
 its folded finest-level epilogue. Module and parameter names are the
-microsoft/MoGe state-dict names. 3x3 convs run kernel K3 on the card.
+microsoft/MoGe state-dict names. 3x3 convs run kernel K3 on the card (its
+backward in plain PyTorch); every parameter is differentiable.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def matrix(self, dtype: torch.dtype) -> torch.Tensor:
-        """The (I, O) matrix in ``dtype`` (cached)."""
+        """The (I, O) matrix in ``dtype`` (cached for inference)."""
         return derived(self, ("matrix", dtype), lambda w: w[:, :, 0, 0].t().to(dtype), self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +61,9 @@ class Conv3x3(nn.Module):
         K3 conv at the low resolution plus a depth-to-space. The fold is
         exact linear algebra done in fp32 (kernel @ fold_w, bias @ fold_w +
         fold_b) before the parity expansion; the cast to the compute dtype
-        comes last. The expanded weights are built once and cached."""
+        comes last. For inference the expanded weights are built once and
+        cached; under autograd they are rebuilt each call, so the gradient
+        reaches the original 3x3 (and fold) weights."""
 
         def expand(w, b, *fold_params):
             kernel = w.permute(2, 3, 1, 0)

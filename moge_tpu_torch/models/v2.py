@@ -1,7 +1,8 @@
 """MoGe-2 model and inference wrapper (port of moge_tpu/models/v2.py).
 
 ``MoGeV2`` is the nn.Module (encoder, neck, heads, scale MLP) with the
-microsoft/MoGe state-dict names; ``MoGeModel`` wraps it with ``infer``,
+microsoft/MoGe state-dict names; its ``forward(image, num_tokens)`` is the
+differentiable training forward. ``MoGeModel`` wraps it with ``infer``,
 ``init_random`` and ``from_pretrained``. ``infer`` takes the JAX package's
 keyword arguments and returns its keys: points, depth, intrinsics, mask,
 normal. Compute is bf16 by default (``use_fp16=True``) or fp32; the
@@ -85,6 +86,20 @@ class MoGeV2(nn.Module):
         if hasattr(self, "scale_head"):
             out["metric_scale"] = torch.exp(self.scale_head(cls_token)[..., 0])
         return out
+
+    def forward(self, image: torch.Tensor, num_tokens: int,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+        """Training forward (the JAX ``MoGeV2.__call__``): ``image`` (B, H, W, 3)
+        RGB in [0, 1]. Antialiased fp32 resize to the token grid, decode in
+        ``dtype``, fp32 epilogue. Returns 'points', 'normal' (B, H, W, 3),
+        'mask_logit', 'mask' (B, H, W) and 'metric_scale' (B,), whichever
+        heads exist. Differentiable w.r.t. every parameter."""
+        _, img_h, img_w, _ = image.shape
+        aspect_ratio = img_w / img_h
+        base_h, base_w = base_token_grid(num_tokens, aspect_ratio)
+        image_14 = resize_2d(image.float(), (base_h * 14, base_w * 14), mode="bilinear", antialias=True)
+        raw = self.decode(image_14, base_h, base_w, aspect_ratio, dtype)
+        return apply_epilogue(raw, img_h, img_w, self.remap_output)
 
     def init_random(self, seed: int = 0) -> "MoGeV2":
         """Random init with the JAX package's distributions, on the module's

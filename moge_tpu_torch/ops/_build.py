@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -70,13 +71,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, float]:
-    """Build (or load) every kernel library; seconds taken per kernel."""
-    times = {}
-    for src in sorted(CSRC.glob("*.cu")):
+    """Build (or load) every kernel library, one nvcc per source, all started
+    together; seconds taken per kernel."""
+
+    def timed(name: str) -> float:
         t0 = time.perf_counter()
-        load(src.stem)
-        times[src.stem] = time.perf_counter() - t0
-    return times
+        load(name)
+        return time.perf_counter() - t0
+
+    names = [src.stem for src in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

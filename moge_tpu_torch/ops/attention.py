@@ -1,4 +1,4 @@
-"""Multi-head attention forward (port of moge_tpu/ops/attention.py).
+"""Multi-head attention, forward and backward (port of moge_tpu/ops/attention.py).
 
 ``flash_attention`` launches kernel K2 (``csrc/flash_attn.cu``) for CUDA
 tensors and runs ``attention_plain`` for CPU tensors. The plain version is
@@ -6,9 +6,17 @@ the math of the JAX package's ``sdpa_xla``: fp32 logits scaled by D**-0.5,
 keys at or past ``kv_valid`` masked with -inf, fp32 softmax, probabilities
 rounded to the value dtype before the second product.
 
-Layout is (B, N, H, D), as in the JAX package. The kernel reads q, k and v
-through their strides, so the per-head views of a (B, N, 3, H, D) qkv
-projection go in without transposed copies.
+``flash_attention_qkv`` is the differentiable entry the encoder uses: it
+takes the (B, N, 3, H, D) qkv projection and, on the card, is an autograd
+Function whose forward is K2 (saving the output and its logsumexp) and
+whose backward is kernels K2b-dq and K2b-dkv (``csrc/flash_attn_bwd.cu``),
+which recompute the probabilities from the logsumexp and write one dqkv.
+On CPU tensors it is ``attention_plain`` under autograd.
+
+Layout is (B, N, H, D), as in the JAX package. The kernels read q, k, v and
+dO through their strides and write dq, dk, dv through theirs, so the
+per-head views of a qkv projection and of its gradient need no transposed
+copies.
 """
 
 from __future__ import annotations
@@ -20,9 +28,15 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_fwd", "attention_plain", "LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "attention_bwd_delta", "flash_attention_qkv", "attention_plain",
+           "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"]
 
-LAUNCHES = 0  # kernel launches made by flash_attention_fwd (never by the plain version)
+# kernel launches (never made by the plain versions): K2 by flash_attention_fwd,
+# K2b-dq and K2b-dkv by flash_attention_bwd
+LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 
 _HEAD_DIM = 64  # every DINOv2 arch of the repo (S/B/L/G/T) has 64-wide heads
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,8 +59,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int, **more: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         _build.require_cuda_tensor(t, f"flash_attention {name}")
         if t.dtype not in _DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v of one dtype, "
@@ -61,9 +75,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) -> 
                 or any(s % vec for s in t.stride()[:3])):
             raise ValueError(f"flash_attention kernel needs unit-stride, 16-byte aligned rows "
                              f"({name} strides {t.stride()})")
-    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+    if (k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]
+            or any(t.shape != q.shape for t in more.values())):
         raise ValueError(f"flash_attention shapes disagree: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}"
+                         + "".join(f", {n} {tuple(t.shape)}" for n, t in more.items()))
     if not 0 < kv_valid <= k.shape[1]:
         raise ValueError(f"kv_valid must be in [1, {k.shape[1]}], got {kv_valid}")
 
@@ -102,3 +118,122 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K/V may be longer or shorter than q; keys at or past ``kv_valid``
     (default: all of them) are masked."""
     return flash_attention_fwd(q, k, v, kv_valid)[0]
+
+
+def _strides(*ts: torch.Tensor):
+    """(b, n, h) element strides of each (B, N, H, D) tensor, as one int64 array."""
+    flat = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def _bwd_setup(q, k, v, dout, lse, delta, kv_valid, outs):
+    """Check the backward kernels' operands; allocate missing outputs like their inputs."""
+    _check(q, k, v, kv_valid, dout=dout)
+    B, Nq, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Nq) or t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd {name} must be a contiguous fp32 ({B}, {H}, {Nq}) tensor")
+    filled = []
+    for name, dst, like in outs:
+        dst = torch.empty_like(like, memory_format=torch.contiguous_format) if dst is None else dst
+        if dst.shape != like.shape or dst.dtype != like.dtype or dst.device != q.device or dst.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd {name} must be a unit-stride {tuple(like.shape)} "
+                             f"{like.dtype} tensor on {q.device}")
+        filled.append(dst)
+    lib = _build.load("flash_attn_bwd")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    dims = (B, H, Nq, k.shape[1], kv_valid)
+    tail = (q.shape[-1] ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
+    return lib, head, dims, tail, filled
+
+
+def attention_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta_i = rowsum(dO_i * O_i) in fp32, (B, H, N): plain PyTorch, as the
+    JAX package computes it in XLA."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid: int, dq: Optional[torch.Tensor] = None):
+    """dq by kernel K2b-dq (CUDA tensors only)."""
+    global DQ_LAUNCHES
+    lib, head, dims, tail, (dq,) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid, [("dq", dq, q)])
+    fn = lib.moge_flash_attention_bwd_dq
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):  # launch on the tensors' card
+        rc = fn(*head, dq.data_ptr(), *dims, _strides(q, k, v, dout, dq), *tail)
+    _build.check(lib, rc, "flash_attention_bwd_dq")
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid: int, dk: Optional[torch.Tensor] = None,
+                            dv: Optional[torch.Tensor] = None):
+    """(dk, dv) by kernel K2b-dkv (CUDA tensors only); keys at or past kv_valid get zeros."""
+    global DKV_LAUNCHES
+    lib, head, dims, tail, (dk, dv) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid,
+                                                 [("dk", dk, k), ("dv", dv, v)])
+    fn = lib.moge_flash_attention_bwd_dkv
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):  # launch on the tensors' card
+        rc = fn(*head, dk.data_ptr(), dv.data_ptr(), *dims, _strides(q, k, v, dout, dk, dv), *tail)
+    _build.check(lib, rc, "flash_attention_bwd_dkv")
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, kv_valid: Optional[int] = None,
+                        dq: Optional[torch.Tensor] = None, dk: Optional[torch.Tensor] = None,
+                        dv: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``flash_attention`` from its output ``out``,
+    logsumexp ``lse`` (B, H, Nq) and the output cotangent ``dout``: kernels
+    K2b-dq and K2b-dkv for CUDA tensors (deterministic, no atomics), autograd
+    through ``attention_plain`` for CPU tensors. ``dq``/``dk``/``dv`` may name
+    (strided) tensors to write into, e.g. the views of one dqkv."""
+    if kv_valid is None:
+        kv_valid = k.shape[1]
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            grads = torch.autograd.grad(attention_plain(*leaves, kv_valid), leaves, dout)
+        return tuple(g if dst is None else dst.copy_(g) for dst, g in zip((dq, dk, dv), grads))
+    dout = dout.contiguous()
+    delta = attention_bwd_delta(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid, dq)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid, dk, dv))
+
+
+class _FlashQKV(torch.autograd.Function):
+    """Self-attention over a (B, N, 3, H, D) qkv projection on the card:
+    forward K2, backward K2b-dq + K2b-dkv into one dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, kv_valid: int):
+        out, lse = flash_attention_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.kv_valid = kv_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        flash_attention_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out, lse, dout, ctx.kv_valid,
+                            dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2])
+        return dqkv, None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Differentiable self-attention over a (B, N, 3, H, D) qkv projection ->
+    (B, N, H, D). Keys at or past ``kv_valid`` (default N) are masked. CUDA
+    tensors run K2 forward and K2b-dq/K2b-dkv backward; CPU tensors run
+    ``attention_plain`` under autograd."""
+    if kv_valid is None:
+        kv_valid = qkv.shape[1]
+    if qkv.device.type == "cpu":
+        return attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
+    return _FlashQKV.apply(qkv, kv_valid)

@@ -6,6 +6,10 @@ math of the JAX package's ``conv3x3_xla``: [ReLU on the input], replicate
 pad, VALID 3x3 conv with fp32 accumulation, + bias, + residual in fp32, one
 rounding to the input dtype.
 
+On the card K3 sits in an autograd Function whose backward is the autograd
+VJP of ``conv3x3_plain`` (x, kernel, bias and residual; ``input_relu``
+honoured), as the JAX package's VJP is an XLA formulation.
+
 ``conv3x3_up2_bilinear`` is the bilinear-2x upsample followed by a 3x3
 conv, computed as one K3 conv at the low resolution over parity-expanded
 weights (``up2_conv3_weights``) and a depth-to-space.
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._vjp import plain_vjp
 
 __all__ = ["conv3x3_replicate", "conv3x3_plain", "conv3x3_up2_bilinear", "up2_conv3_weights",
            "up2_conv3_expanded", "depth_to_space2", "LAUNCHES"]
@@ -80,6 +85,20 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
     return y
 
 
+class _Conv3x3(torch.autograd.Function):
+    """K3 forward; backward = VJP of ``conv3x3_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, residual, input_relu):
+        ctx.save_for_backward(x, kernel, bias, residual)
+        ctx.input_relu = input_relu
+        return _launch(x, kernel, bias, residual, input_relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(conv3x3_plain, ctx.saved_tensors, ctx.needs_input_grad, g, ctx.input_relu), None)
+
+
 def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
                       residual: Optional[torch.Tensor] = None, input_relu: bool = False) -> torch.Tensor:
     """3x3 stride-1 NHWC conv with replicate padding and fp32 accumulation.
@@ -87,11 +106,12 @@ def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torc
     ``kernel``: (3, 3, C, O) in the input dtype; ``bias``: fp32 (O,) or None;
     ``residual``: (B, H, W, O) added in fp32 before the rounding;
     ``input_relu``: ReLU on the input (exact: it commutes with the padding).
-    CUDA tensors run kernel K3; CPU tensors run ``conv3x3_plain``."""
+    CUDA tensors run kernel K3 (differentiable: backward in plain PyTorch);
+    CPU tensors run ``conv3x3_plain``."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, kernel, bias, residual, input_relu)
     _build.require_cuda_tensor(x, "conv3x3_replicate")
-    return _launch(x, kernel, bias, residual, input_relu)
+    return _Conv3x3.apply(x, kernel, bias, residual, input_relu)
 
 
 # bilinear 2x (half-pixel, edge-clamped) row coefficients per (output parity

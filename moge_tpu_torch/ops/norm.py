@@ -4,6 +4,10 @@
 tensors and runs ``layer_norm_plain`` for CPU tensors. The plain version is
 the math of the JAX package's ``_ln_xla``: two-pass fp32 mean and variance,
 eps inside the rsqrt, fp32 affine, one rounding to the input dtype.
+
+On the card K1 sits in an autograd Function whose backward is the autograd
+VJP of ``layer_norm_plain``, as the JAX package's ``_ln_bwd`` is the VJP of
+``_ln_xla``: the TPU has no backward kernel for it either.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._vjp import plain_vjp
 
 __all__ = ["layer_norm_fp32", "layer_norm_plain", "LAUNCHES"]
 
@@ -63,13 +68,28 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
     return y
 
 
+class _LayerNorm(torch.autograd.Function):
+    """K1 forward; backward = VJP of ``layer_norm_plain`` (grads to x, scale, bias)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        return _launch(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(layer_norm_plain, ctx.saved_tensors, ctx.needs_input_grad, g, ctx.eps), None)
+
+
 def layer_norm_fp32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of ``x`` (any leading shape) with fp32
     statistics; ``scale``/``bias`` are fp32 (D,). Output dtype = input dtype.
 
-    CUDA tensors run kernel K1; CPU tensors run ``layer_norm_plain``."""
+    CUDA tensors run kernel K1 (differentiable: backward in plain PyTorch);
+    CPU tensors run ``layer_norm_plain``."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     _build.require_cuda_tensor(x, "layer_norm_fp32")
-    return _launch(x, scale, bias, eps)
+    return _LayerNorm.apply(x, scale, bias, eps)

@@ -1,7 +1,7 @@
-"""Kernels K1-K3 on the card against their plain versions, in fp32 and bf16,
-at small ragged shapes, and the tiny MoGe-2 decode on the card against the
-CPU. Needs a CUDA GPU and nvcc (the kernels have no CPU mode); skipped
-elsewhere. On a GPU host:
+"""Kernels K1-K4 (with the flash backward K2b-dq/K2b-dkv) on the card against
+their plain versions, in fp32 and bf16, at small ragged shapes, and the tiny
+MoGe-2 decode and gradient on the card against the CPU. Needs a CUDA GPU and
+nvcc (the kernels have no CPU mode); skipped elsewhere. On a GPU host:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from moge_tpu_torch.ops import attention, conv, norm
+from moge_tpu_torch.ops import alignment, attention, conv, norm
 from torch_tiny_config import TINY_CONFIG
 
 pytestmark = pytest.mark.cuda
@@ -21,6 +21,9 @@ pytestmark = pytest.mark.cuda
 FP32_TOL = 1e-5   # fp32 kernel vs fp32 plain version: summation order only
 K2_BF16_ABS = 2e-2
 K3_BF16_REL = 1e-2
+K2B_FP32_REL = 1e-4  # fp32 backward vs autograd of the plain version: summation order
+K2B_BF16_REL = 3e-2  # P and dS rounded to bf16 before their products, as on the TPU
+K4_REL = 2e-5        # fp32 sums of up to ~1.7k terms in another order (and fma)
 
 
 @pytest.fixture
@@ -119,3 +122,78 @@ def test_tiny_decode_on_card_matches_cpu(dev, dtype, rtol):
     for key in want:
         a, b = got[key].float().cpu(), want[key]
         assert ((a - b).norm() / b.norm()).item() <= rtol, key
+
+
+def _rel(got, want):
+    return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,kv_valid", [(2, 77, 3, None), (1, 130, 2, 100), (1, 64, 1, 1), (2, 200, 2, 130)])
+def test_flash_attention_backward(dev, dtype, b, n, h, kv_valid):
+    """K2b-dq and K2b-dkv against autograd through the plain version (fp32,
+    same inputs), reached through the qkv Function as the encoder calls it;
+    keys at or past kv_valid get zero dk and dv."""
+    g = _gen(dev, 7 * n + h)
+    qkv = torch.randn(b, n, 3, h, 64, device=dev, generator=g).to(dtype).requires_grad_()
+    dout = torch.randn(b, n, h, 64, device=dev, generator=g).to(dtype)
+    launches = (attention.DQ_LAUNCHES, attention.DKV_LAUNCHES)
+    (got,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
+    assert (attention.DQ_LAUNCHES - launches[0], attention.DKV_LAUNCHES - launches[1]) == (1, 1)
+    ref = qkv.detach().float().requires_grad_()
+    (want,) = torch.autograd.grad(
+        attention.attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], kv_valid), ref, dout.float())
+    # relative to the largest gradient: with one key dq is 0 up to rounding
+    tol = (K2B_FP32_REL if dtype == torch.float32 else K2B_BF16_REL) * want.abs().max().item()
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert (got[:, :, i].float() - want[:, :, i]).abs().max().item() <= tol, name
+    if kv_valid is not None:
+        assert not got[:, kv_valid:, 1:].any()
+
+
+@pytest.mark.parametrize("r,length,per_term", [(3, 108, False), (5, 1000, False), (2, 1729, True),
+                                               (7, 300, True), (4, 6912, False)])
+def test_dense_objective(dev, r, length, per_term):
+    """K4 against the chunked broadcast form, at lengths that are not a
+    multiple of the candidate tile, with a scalar and a per-term truncation."""
+    g = _gen(dev, r * length)
+    A, wx, wy = torch.randn(3, r, length, device=dev, generator=g).unbind(0)
+    t = torch.rand(r, length, device=dev, generator=g) + 0.5 if per_term else 1.0
+    before = alignment.LAUNCHES
+    got = alignment.dense_objective(A, wx, wy, t)
+    assert alignment.LAUNCHES == before + 1
+    want = alignment.dense_objective_plain(A, wx, wy, t)
+    assert _rel(got, want) <= K4_REL
+    # the kernel's argmin attains the plain minimum (near-ties may pick another candidate)
+    picked = want.gather(1, got.argmin(-1)[:, None])[:, 0]
+    assert ((picked - want.amin(-1)) <= K4_REL * want.abs().max()).all()
+
+
+def test_tiny_gradient_on_card_matches_cpu(dev):
+    """Gradients of a tiny MoGe-2 forward in fp32: the kernels' autograd
+    Functions on the card against the plain versions on the CPU."""
+    from moge_tpu_torch.models.v2 import MoGeModel
+
+    gpu = MoGeModel(TINY_CONFIG, dev, torch.float32).init_random(seed=0).module
+    cpu = MoGeModel(TINY_CONFIG, "cpu", torch.float32).module
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True)
+    image = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (2, 56, 70, 3)).astype(np.float32))
+    grads = []
+    for module, img in ((gpu, image.to(dev)), (cpu, image)):
+        out = module(img, 20, torch.float32)
+        loss = out["points"].square().mean() + out["normal"][..., 0].mean() + out["mask_logit"].mean() \
+            + out["metric_scale"].mean()
+        loss.backward()
+        grads.append({k: p.grad.detach().cpu() for k, p in module.named_parameters() if p.grad is not None})
+    assert set(grads[0]) == set(grads[1])
+    num = sum((grads[0][k] - grads[1][k]).square().sum() for k in grads[1])
+    den = sum(grads[1][k].square().sum() for k in grads[1])
+    assert (num / den).sqrt().item() <= 1e-4
+
+
+def test_dense_objective_rejects_what_the_kernel_does_not_take(dev):
+    a = torch.randn(3, 40, device=dev)
+    with pytest.raises(ValueError):
+        alignment.dense_objective(a.double(), a.double(), a.double(), 1.0)
+    with pytest.raises(ValueError):
+        alignment.dense_objective(a.t(), a.t(), a.t(), 1.0)
