@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe-2 inference and training on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, serving and training on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -8,24 +8,43 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes plus ragged edges, with errors and median times: K1-K3 (and
-   K2's logsumexp), then the flash backward K2b-dq/K2b-dkv (bf16 and fp32)
-   and the dense align objective K4 at the v2 loss shapes;
+   K2's logsumexp), K3-grouped at the batched decoder heads' shapes (G=3,
+   B0 = 1 and 8, bf16 and fp32, the grouped up2 form), then the flash
+   backward K2b-dq/K2b-dkv (bf16 and fp32) and the dense align objective K4
+   at the v2 loss shapes;
 4. inference at full width: ``moge-2-vitl-normal`` with random weights from
    a seed, bf16, four ``infer`` requests, launch counters per forward;
 5. inference parity: ``moge-2-vits-normal`` decode, bf16 with the kernels on
    the card against fp32 with the plain versions on the CPU;
-6. training at full width: ``configs/train/v2.json`` (model, optimizer, LR
+6. batched heads: the same ViT-L with ``batched_heads=True`` (the three
+   heads as one grouped pass on K3-grouped) at 518x518, 1369 and 3600
+   tokens, batch 1 and 8, against the sequential heads, launch counters per
+   forward, warm medians of both;
+7. serving: the micro-batcher (``scripts/serve.py``) over the batched-heads
+   model, 32 requests from 8 client threads (half with ``fov_x``), every
+   answer against its image's own batch-1 ``infer``; requests/s, mean
+   batch, p50/p90 latency, launch counters per batch;
+8. MoGe-1: ``moge-vitl`` bf16 at full width, three ``infer`` requests with
+   launch counters per forward, then a ViT-S MoGe-1 (same head) forward,
+   bf16 on the card against fp32 on the CPU;
+9. training at full width: ``configs/train/v2.json`` (model, optimizer, LR
    schedule, label type A losses), random weights from a seed, bf16 compute
    with fp32 parameters, batch 2 at 512x512, three ``make_train_step`` steps
    at 1369 and at 3600 tokens, launch counters per step, step time and peak
    memory;
-7. training parity: ``moge-2-vits-normal``, one fp32 grad step on the card
-   (kernels) against the CPU (plain versions) from the same weights, batch
-   and random draws: loss, every alignment solve and the gradients.
+10. training parity: ``moge-2-vits-normal``, one fp32 grad step on the card
+    (kernels) against the CPU (plain versions) from the same weights, batch
+    and random draws: loss, every alignment solve and the gradients.
 
-Prints a JSON line with the kernels' numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. No CPU fallback: without a
-GPU, or without the package beside it, it exits nonzero and prints no result.
+Prints a JSON line with the kernels' numbers, the inference, batched,
+serving and training numbers, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is its count
+summed over every counted run of the paths above; ``launches_by_path``
+gives, per path, the count per run and the number of runs (a run is one
+forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
+``serve``, one step for ``train``); ``infer_launches`` is the count per
+``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
+beside it, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -60,6 +79,18 @@ TRAIN_HW = (512, 512)
 PARITY_LOSS_RTOL = 1e-4
 PARITY_SOLVE_RTOL = 1e-4
 PARITY_GRAD_RTOL = 1e-3
+# batched heads / serving: 518x518 images; answers after the focal/shift
+# solve compared on a model whose point map is a known perspective
+# (tests/torch_tiny_config.py::make_points_perspective), masks may flip
+# where bf16 sums in another order tip the threshold
+SERVE_HW = 518
+SERVE_TOKENS = 1369
+SERVE_REQUESTS = 32
+SERVE_CLIENTS = 8
+BATCHED_TOKENS = (1369, 3600)
+BATCHED_SIZES = (1, 8)
+MASK_AGREE = 0.99  # least share of pixels whose mask agrees
+INTRINSICS_RTOL = 1e-3
 
 
 def log(*args):
@@ -188,8 +219,55 @@ def phase_kernels():
             raise AssertionError(f"K3 conv disagrees at {h}x{w} {c}->{o}: rel {rel} > {K3_REL}")
         k3.append((err, ms, plain_ms))
     results["conv3x3"] = k3
+    results["conv3x3_grouped"] = grouped_cases(gen)
     torch.cuda.synchronize()
     return results
+
+
+def grouped_cases(gen):
+    """K3-grouped vs its plain version (the grouped ``conv3x3_plain``: one
+    cuDNN fp32 conv per group) at the batched heads' shapes with ViT-L at
+    1369 tokens, G = 3 heads and B0 = 1 and 8 images, bf16 and fp32, then a
+    ragged case and the folded up2 conv (parity-expanded 64 -> 4x32)."""
+    import torch
+
+    from moge_tpu_torch.ops import conv
+
+    dev = torch.device(DEVICE)
+    cases = []
+    shapes = [(74, 74, 256, 256, True, True), (148, 148, 128, 128, True, True), (296, 296, 64, 64, True, True),
+              ("up2", 296, 64, 32, False, False), (37, 53, 24, 20, True, True)]
+    for h, w, c, o, relu, use_res in shapes:
+        for b0 in ((1, 8) if h != 37 else (3,)):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(3 * b0, w, w, c, generator=gen, device=dev).to(dtype) if h == "up2" else \
+                    torch.randn(3 * b0, h, w, c, generator=gen, device=dev).to(dtype)
+                kern = torch.randn(3, 3, 3, c, o, generator=gen, device=dev) * (9 * c) ** -0.5
+                bias = torch.randn(3, o, generator=gen, device=dev) * 0.1
+                if h == "up2":  # the operands of conv3x3_up2_bilinear's grouped conv
+                    kern, bias = conv.up2_conv3_expanded(kern, bias, dtype)
+                kern = kern.to(dtype).contiguous()
+                res = torch.randn(*x.shape[:3], kern.shape[-1], generator=gen, device=dev).to(dtype) \
+                    if use_res else None
+                before = conv.GROUPED_LAUNCHES
+                got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
+                if conv.GROUPED_LAUNCHES != before + 1:
+                    raise AssertionError("conv3x3_replicate with grouped weights did not launch K3-grouped")
+                want = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                iters = 20 if dtype == torch.bfloat16 else 5
+                ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu), iters)
+                plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, kern, bias, res, relu), iters)
+                label = f"{'up2 ' if h == 'up2' else ''}{x.shape[1]}x{x.shape[2]} {c}->{kern.shape[-1]}"
+                log(f"[K3g] G=3 B0={b0} {label} {str(dtype).split('.')[-1]} relu={relu} residual={use_res}: "
+                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                if not rel <= K3_REL:
+                    raise AssertionError(f"K3-grouped disagrees at G=3 B0={b0} {label} {dtype}: rel {rel} > {K3_REL}")
+                cases.append((err, ms, plain_ms))
+                del x, kern, bias, res, got, want
+    torch.cuda.empty_cache()
+    return cases
 
 
 def phase_kernels_train():
@@ -277,20 +355,46 @@ def loss_solve_shapes(loss_table, batch: int):
     return shapes
 
 
-def expected_launches(config) -> dict:
-    """Kernel launches per inference forward implied by a MoGe-2 config."""
+def _vit_launches(backbone: str, layers) -> dict:
+    """K1 and K2 launches of one ViT forward: two LayerNorms and one
+    attention per block, the final norm once per taken layer."""
     from moge_tpu_torch.models.dinov2 import VIT_ARCHS
 
-    vit = VIT_ARCHS[config["encoder"]["backbone"]]
-    layers = config["encoder"]["intermediate_layers"]
+    depth = VIT_ARCHS[backbone].depth
     n_take = layers if isinstance(layers, int) else len(layers)
-    convs = 0
-    for name in ("neck", "points_head", "normal_head", "mask_head"):
-        stack = config.get(name)
-        if stack is not None:
-            convs += 2 * sum(stack["num_res_blocks"]) + len(stack["dim_res_blocks"]) - 1
-    return {"layer_norm": 2 * vit.depth + n_take, "flash_attention": vit.depth, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "conv3x3": convs, "dense_align": 0}
+    return {"layer_norm": 2 * depth + n_take, "flash_attention": depth, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, "conv3x3": 0, "conv3x3_grouped": 0, "dense_align": 0}
+
+
+def expected_launches(config, batched_heads: bool = False) -> dict:
+    """Kernel launches per inference forward implied by a MoGe-2 config: per
+    ConvStack two 3x3 convs per res block and one per resampler; with
+    batched heads the heads' convs run once each as K3-grouped."""
+    from moge_tpu_torch.models.multihead import heads_batchable
+
+    counts = _vit_launches(config["encoder"]["backbone"], config["encoder"]["intermediate_layers"])
+    heads = [config[name] for name in ("points_head", "normal_head", "mask_head") if config.get(name) is not None]
+
+    def convs(stack):
+        return 2 * sum(stack["num_res_blocks"]) + len(stack["dim_res_blocks"]) - 1
+
+    counts["conv3x3"] = convs(config["neck"])
+    if batched_heads and heads_batchable(heads):
+        counts["conv3x3_grouped"] = convs(heads[0])
+    else:
+        counts["conv3x3"] += sum(convs(h) for h in heads)
+    return counts
+
+
+def expected_v1_launches(config) -> dict:
+    """Kernel launches per MoGe-1 forward: per upsample stage one 3x3 conv
+    and two per res block; per output block (points, mask) the 3x3 conv_in,
+    two per res block, and conv_out when it is 3x3."""
+    counts = _vit_launches(config["encoder"], config.get("intermediate_layers", 4))
+    stages = len(config.get("dim_upsample", [256, 128, 128])) * (1 + 2 * config.get("num_res_blocks", 1))
+    outputs = 2 * (1 + 2 * config.get("last_res_blocks", 0) + (config.get("last_conv_size", 1) == 3))
+    counts["conv3x3"] = stages + outputs
+    return counts
 
 
 def expected_train_launches(config, loss_config) -> dict:
@@ -316,7 +420,7 @@ def reset_counts():
     from moge_tpu_torch.ops import alignment, attention, conv, norm
 
     norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
-    conv.LAUNCHES = alignment.LAUNCHES = 0
+    conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -324,7 +428,7 @@ def read_counts() -> dict:
 
     return {"layer_norm": norm.LAUNCHES, "flash_attention": attention.LAUNCHES,
             "flash_attention_dq": attention.DQ_LAUNCHES, "flash_attention_dkv": attention.DKV_LAUNCHES,
-            "conv3x3": conv.LAUNCHES, "dense_align": alignment.LAUNCHES}
+            "conv3x3": conv.LAUNCHES, "conv3x3_grouped": conv.GROUPED_LAUNCHES, "dense_align": alignment.LAUNCHES}
 
 
 def phase_slice(card: str):
@@ -340,7 +444,7 @@ def phase_slice(card: str):
     config = get_preset("moge-2-vitl-normal")["config"]
     expect = expected_launches(config)
     t0 = time.perf_counter()
-    model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+    model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16, batched_heads=False).init_random(seed=SEED)
     torch.cuda.synchronize()
     log(f"[slice] moge-2-vitl-normal init_random(seed={SEED}) on {DEVICE} in {time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(SEED)
@@ -386,7 +490,7 @@ def phase_slice(card: str):
         log(f"[slice] {label}: mask {mask.float().mean().item():.3f} of pixels, "
             f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, "
             f"warm median {latencies[label]:.2f} ms ({card})")
-    return counts_seen[0], latencies
+    return model, (counts_seen[0], len(counts_seen)), latencies
 
 
 def phase_parity():
@@ -413,6 +517,231 @@ def phase_parity():
         log(f"[parity] moge-2-vits-normal {key}: relative L2 {rel:.3e} (tol {MODEL_L2_RTOL})")
         if not rel <= MODEL_L2_RTOL:
             raise AssertionError(f"{key}: bf16-on-card vs fp32-on-CPU relative L2 {rel} > {MODEL_L2_RTOL}")
+
+
+def wall_ms(fn, repeats: int) -> float:
+    """Median host-clock time of ``fn`` in ms, each call ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def compare_answers(label: str, got, want) -> dict:
+    """One image's answer against a reference answer for it: the masks agree
+    on at least MASK_AGREE of the pixels; depth, points and normal within
+    MODEL_L2_RTOL (relative L2) where both masks hold; intrinsics within
+    INTRINSICS_RTOL of their largest entry."""
+    import torch
+
+    got = {k: torch.as_tensor(v).float().cpu() for k, v in got.items()}
+    want = {k: torch.as_tensor(v).float().cpu() for k, v in want.items()}
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)}, expected {sorted(want)}")
+    m_got, m_want = got["mask"] > 0.5, want["mask"] > 0.5
+    both = m_got & m_want
+    errs = {"mask_agree": (m_got == m_want).float().mean().item()}
+    if not errs["mask_agree"] >= MASK_AGREE or not both.any():
+        raise AssertionError(f"{label}: masks agree on {errs['mask_agree']:.5f} of the pixels (least {MASK_AGREE})")
+    for key in ("depth", "points", "normal"):
+        a, b = got[key][both], want[key][both]
+        errs[key] = ((a - b).norm() / b.norm()).item()
+        if not errs[key] <= MODEL_L2_RTOL:
+            raise AssertionError(f"{label}: {key} relative L2 {errs[key]} > {MODEL_L2_RTOL}")
+    k_got, k_want = got["intrinsics"], want["intrinsics"]
+    errs["intrinsics"] = ((k_got - k_want).abs().max() / k_want.abs().max()).item()
+    if not errs["intrinsics"] <= INTRINSICS_RTOL:
+        raise AssertionError(f"{label}: intrinsics {k_got.tolist()} vs {k_want.tolist()}")
+    return errs
+
+
+def worst(errs) -> str:
+    keys = errs[0].keys()
+    agg = {k: (min if k == "mask_agree" else max)(e[k] for e in errs) for k in keys}
+    return ", ".join(f"{k} {v:.3e}" for k, v in agg.items())
+
+
+def phase_batched(card: str, seq):
+    """Batched heads: moge-2-vitl-normal bf16 with ``batched_heads=True``
+    against the sequential heads of ``seq`` (the same weights), 518x518 at
+    1369 and 3600 tokens, batch 1 and 8; launch counters per forward, warm
+    medians of both. Both models first get a point map of known perspective
+    (``make_points_perspective``), so that answers after the focal/shift
+    solve compare what they mean to."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import MoGeModel
+    from torch_tiny_config import make_points_perspective
+
+    config = get_preset("moge-2-vitl-normal")["config"]
+    make_points_perspective(seq.module)
+    bat = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16, batched_heads=True)
+    bat.module.load_state_dict(seq.module.state_dict(), strict=True)
+    if not bat.module.batched_heads or seq.module.batched_heads:
+        raise AssertionError("moge-2-vitl-normal: heads not batchable, or the sequential model batches them")
+    expect = {False: expected_launches(config), True: expected_launches(config, batched_heads=True)}
+    rng = np.random.default_rng(SEED + 4)
+    timings = {}
+    for num_tokens in BATCHED_TOKENS:
+        for batch in BATCHED_SIZES:
+            label = f"{SERVE_HW}x{SERVE_HW} num_tokens={num_tokens} batch={batch}"
+            images = torch.from_numpy(rng.uniform(0, 1, (batch, SERVE_HW, SERVE_HW, 3)).astype(np.float32))
+            images = images.to(DEVICE)
+            outs, ms = {}, {}
+            for batched, model in ((False, seq), (True, bat)):
+                reset_counts()
+                outs[batched] = model.infer(images, num_tokens=num_tokens)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                if counts != expect[batched]:
+                    raise AssertionError(f"{label} batched={batched}: launches {counts}, expected {expect[batched]}")
+                ms[batched] = wall_ms(lambda: model.infer(images, num_tokens=num_tokens), 3)
+            errs = [compare_answers(f"{label} image {i}", {k: v[i] for k, v in outs[True].items()},
+                                    {k: v[i] for k, v in outs[False].items()}) for i in range(batch)]
+            timings[label] = {"sequential_ms": ms[False], "batched_ms": ms[True]}
+            log(f"[batched] {label}: batched vs sequential worst {worst(errs)}; launches per forward "
+                f"{expect[True]}; warm median sequential {ms[False]:.2f} ms, batched {ms[True]:.2f} ms ({card})")
+    return bat, (expect[True], len(BATCHED_TOKENS) * len(BATCHED_SIZES)), timings
+
+
+def phase_serve(card: str, model):
+    """The micro-batcher over the batched-heads model: warmup, then
+    SERVE_REQUESTS requests from SERVE_CLIENTS client threads (half with
+    fov_x=60), every one answered and each answer within tolerance of its
+    image's own batch-1 ``infer``; the mean batch must exceed 1."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.scripts.serve import VALID_MAPS, InferenceBatcher
+
+    per_forward = expected_launches(get_preset("moge-2-vitl-normal")["config"], batched_heads=True)
+    rng = np.random.default_rng(SEED + 5)
+    images = [rng.uniform(0, 1, (SERVE_HW, SERVE_HW, 3)).astype(np.float32) for _ in range(SERVE_REQUESTS)]
+    fovs = [60.0 if i % 2 else None for i in range(SERVE_REQUESTS)]
+    answers, latencies, failures = [None] * SERVE_REQUESTS, [None] * SERVE_REQUESTS, []
+
+    def client(c):
+        for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+            t0 = time.perf_counter()
+            try:
+                answers[i] = batcher.infer(images[i], fovs[i], VALID_MAPS)
+            except Exception as e:  # reported below; the phase fails
+                failures.append(f"request {i}: {type(e).__name__}: {e}")
+            latencies[i] = (time.perf_counter() - t0) * 1e3
+
+    batcher = InferenceBatcher(model, SERVE_HW, SERVE_HW, SERVE_TOKENS, max_batch=8, max_wait_ms=5.0)
+    try:
+        t0 = time.perf_counter()
+        batcher.warmup()
+        warmup_s = time.perf_counter() - t0
+        stats0 = dict(batcher.stats)
+        reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        batcher.stop()
+    if failures or any(a is None for a in answers):
+        raise AssertionError(f"serve: {sum(a is None for a in answers)} requests unanswered: {failures[:3]}")
+    batches = batcher.stats["batches"] - stats0["batches"]
+    mean_batch = (batcher.stats["batched_images"] - stats0["batched_images"]) / batches
+    if not mean_batch > 1:
+        raise AssertionError(f"serve: mean batch {mean_batch}, expected more than 1")
+    want_counts = {k: v * batches for k, v in per_forward.items()}
+    if counts != want_counts:
+        raise AssertionError(f"serve: launches {counts} over {batches} batches, expected {want_counts}")
+    errs = []
+    for i, (image, fov) in enumerate(zip(images, fovs)):
+        want = model.infer(torch.from_numpy(image), num_tokens=SERVE_TOKENS, fov_x=fov)
+        errs.append(compare_answers(f"serve request {i}", answers[i], want))
+    p50, p90 = np.percentile(latencies, [50, 90]).tolist()
+    stats = {"requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "requests_per_s": SERVE_REQUESTS / wall_s,
+             "mean_batch": mean_batch, "batches": batches, "p50_ms": p50, "p90_ms": p90, "warmup_s": warmup_s}
+    log(f"[serve] {SERVE_REQUESTS} requests from {SERVE_CLIENTS} clients at {SERVE_HW}x{SERVE_HW}, "
+        f"{SERVE_TOKENS} tokens: {stats['requests_per_s']:.2f} requests/s, {batches} batches, mean batch "
+        f"{mean_batch:.2f}, latency p50 {p50:.1f} ms p90 {p90:.1f} ms, warmup {warmup_s:.1f} s ({card}); "
+        f"against batch-1 infer worst {worst(errs)}; launches {counts}")
+    return (per_forward, batches), stats
+
+
+def phase_moge1(card: str):
+    """moge-vitl (MoGe-1 ViT-L) at full width, random weights, bf16: three
+    ``infer`` requests (one with fov_x, one non-square), launch counters per
+    forward; then a ViT-S MoGe-1 with the same head, bf16 on the card
+    against fp32 on the CPU."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v1 import MoGeModel
+
+    config = get_preset("moge-vitl")["config"]
+    expect = expected_v1_launches(config)
+    model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+    rng = np.random.default_rng(SEED + 6)
+    latencies, counts_seen = {}, []
+    for label, (h, w), kwargs in (("518x518", (518, 518), {}), ("518x518 fov_x=60", (518, 518), {"fov_x": 60.0}),
+                                  ("480x640", (480, 640), {})):
+        image = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32)).to(DEVICE)
+        reset_counts()
+        out = model.infer(image, **kwargs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts_seen.append(counts)
+        if counts != expect:
+            raise AssertionError(f"moge-vitl {label}: kernel launches {counts}, expected {expect} per forward")
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w)}
+        if shapes != want or out["mask"].dtype != torch.bool:
+            raise AssertionError(f"moge-vitl {label}: output shapes {shapes} (mask {out['mask'].dtype}), expected {want}")
+        mask = out["mask"]
+        if not torch.isfinite(out["intrinsics"]).all() or not torch.isfinite(out["depth"][mask]).all():
+            raise AssertionError(f"moge-vitl {label}: non-finite intrinsics or depth inside the mask")
+        unmasked = model.infer(image, apply_mask=False, **kwargs)  # random weights may mask most pixels
+        if not all(torch.isfinite(unmasked[k]).all() for k in ("points", "depth")):
+            raise AssertionError(f"moge-vitl {label}: non-finite points or depth without the mask")
+        if "fov_x" in kwargs:
+            fx, want_fx = out["intrinsics"][0, 0].item(), 0.5 / math.tan(math.radians(kwargs["fov_x"]) / 2)
+            if abs(fx - want_fx) > 1e-5 * want_fx:
+                raise AssertionError(f"moge-vitl {label}: fx {fx} does not follow fov_x (want {want_fx})")
+        latencies[label] = wall_ms(lambda: model.infer(image, **kwargs), 3)
+        log(f"[moge1] moge-vitl {label}: mask {mask.float().mean().item():.3f} of pixels, "
+            f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, warm median {latencies[label]:.2f} ms ({card})")
+    del model
+
+    small = dict(config, encoder="dinov2_vits14")
+    gpu = MoGeModel(small, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+    cpu = MoGeModel(small, device="cpu", dtype=torch.float32)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
+    image = torch.from_numpy(rng.uniform(0, 1, (1, 392, 392, 3)).astype(np.float32))
+    with torch.inference_mode():
+        got = gpu.module(image.to(DEVICE), 784, torch.bfloat16)
+        want = cpu.module(image, 784, torch.float32)
+    for key in sorted(want):
+        rel = ((got[key].float().cpu() - want[key]).norm() / want[key].norm()).item()
+        log(f"[moge1-parity] ViT-S MoGe-1 {key}: relative L2 {rel:.3e} (tol {MODEL_L2_RTOL})")
+        if not rel <= MODEL_L2_RTOL:
+            raise AssertionError(f"MoGe-1 {key}: bf16-on-card vs fp32-on-CPU relative L2 {rel} > {MODEL_L2_RTOL}")
+    return (counts_seen[0], len(counts_seen)), latencies
 
 
 def train_batch(rng, batch: int, hw, label_type_idx: int, device):
@@ -470,7 +799,7 @@ def phase_train(card: str):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     log(f"[train] moge-2-vitl-normal, {sum(p.numel() for p in trainable.values())} trainable fp32 parameters, "
         f"bf16 compute; label type A losses {sorted(cfg['loss']['A'])}; expected launches per step {expect}")
-    steps, total_counts = [], {k: 0 for k in expect}
+    steps = []
     for num_tokens in TRAIN_TOKENS:
         train_step = make_train_step(module, tx, cfg["loss"], label_types, num_tokens, dtype=torch.bfloat16)
         for i in range(TRAIN_STEPS):
@@ -495,8 +824,6 @@ def phase_train(card: str):
                 raise AssertionError(f"non-finite gradients (update skipped) at {num_tokens} tokens, step {i}")
             if counts != expect:
                 raise AssertionError(f"train step launches {counts}, expected {expect}")
-            for k in total_counts:
-                total_counts[k] += counts[k]
             steps.append({"num_tokens": num_tokens, "step": i, "ms": wall_ms, "peak_gib": peak_gib, "loss": total})
     if state.step != len(TRAIN_TOKENS) * TRAIN_STEPS or tx.count != state.step:
         raise AssertionError(f"step count {state.step}, optimizer updates {tx.count}")
@@ -522,7 +849,7 @@ def phase_train(card: str):
         raise AssertionError(f"{len(bad)} trainable parameters without a finite nonzero gradient: {bad[:5]}")
     log(f"[train] {len(grads)} trainable parameters all got finite nonzero gradients; "
         f"{sum(lrs_used[lr_groups[n]] > 0 for n in trainable)} moved (nonzero LR) and their EMA followed")
-    return total_counts, steps
+    return (expect, len(steps)), steps
 
 
 def phase_train_parity():
@@ -604,12 +931,13 @@ KERNELS = [
     ("flash_attention_dq", "moge_tpu_torch/csrc/flash_attn_bwd.cu", "moge_tpu/ops/attention.py:124"),
     ("flash_attention_dkv", "moge_tpu_torch/csrc/flash_attn_bwd.cu", "moge_tpu/ops/attention.py:154"),
     ("conv3x3", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:132"),
+    ("conv3x3_grouped", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:304"),
     ("dense_align", "moge_tpu_torch/csrc/dense_align.cu", "moge_tpu/ops/alignment.py:90"),
 ]
-# which phase-3 case carries the reported time: the 1369-token shape (bf16),
-# and for K4 the global loss's L = 6912
+# which phase-3 case carries the reported time: the 1369-token shape (bf16;
+# for K3-grouped 296^2 64->64 at B0 = 1), and for K4 the global loss's L = 6912
 REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-               "conv3x3": 3, "dense_align": 0}
+               "conv3x3": 3, "conv3x3_grouped": 8, "dense_align": 0}
 
 
 def main() -> int:
@@ -619,20 +947,34 @@ def main() -> int:
     if not (ROOT / "moge_tpu_torch").is_dir():
         raise RuntimeError(f"moge_tpu_torch/ not found beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
+    sys.path.append(str(ROOT / "tests"))  # torch_tiny_config.make_points_perspective
     phase_build()
     kernel_results = {**phase_kernels(), **phase_kernels_train()}
-    infer_launches, latencies = phase_slice(card)
+    # each path is driven with the counters set to 0 just before each of its
+    # runs and read just after; every run of a path launches the same counts
+    launches = {}  # path -> (launches per run, runs)
+    seq, launches["infer"], latencies = phase_slice(card)
     phase_parity()
-    train_launches, train_steps = phase_train(card)
+    bat, launches["batched_heads"], batched_ms = phase_batched(card, seq)
+    del seq
+    launches["serve"], serve_stats = phase_serve(card, bat)
+    del bat
+    torch.cuda.empty_cache()
+    launches["moge1_infer"], moge1_ms = phase_moge1(card)
+    torch.cuda.empty_cache()
+    launches["train"], train_steps = phase_train(card)
     phase_train_parity()
     kernels = []
     for name, source, replaces in KERNELS:
         cases = kernel_results[name]
         _, ms, plain_ms = cases[REPORT_CASE[name]]
+        by_path = {path: {"per_run": per_run[name], "runs": runs} for path, (per_run, runs) in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": train_launches[name], "infer_launches": infer_launches[name],
+                        "launches": sum(p["per_run"] * p["runs"] for p in by_path.values()),
+                        "infer_launches": by_path["infer"]["per_run"], "launches_by_path": by_path,
                         "max_abs_err": max(c[0] for c in cases), "ms": ms, "plain_ms": plain_ms})
-    print(json.dumps({"kernels": kernels, "infer_ms": latencies, "train_steps": train_steps}))
+    print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
+                      "serve": serve_stats, "moge1_infer_ms": moge1_ms, "train_steps": train_steps}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

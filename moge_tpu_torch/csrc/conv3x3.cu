@@ -1,11 +1,15 @@
-// K3: 3x3 stride-1 convolution with replicate padding, NHWC, fp32 accumulation.
+// K3 and K3-grouped: 3x3 stride-1 convolution with replicate padding, NHWC,
+// fp32 accumulation.
 //
 // Replaces moge_tpu/ops/conv.py::_kernel (reached through conv3x3_replicate
-// and conv3x3_up2_bilinear -> _conv3x3_pallas). Computes
-//   y[b,h,w,o] = round( sum_{dh,dw,c} relu?(x[b, clamp(h+dh-1), clamp(w+dw-1), c]) * k[dh,dw,c,o]
-//                       + bias[o] + residual[b,h,w,o] )
+// and conv3x3_up2_bilinear -> _conv3x3_pallas), in both of its weight forms:
+// shared (3,3,C,O) weights (K3) and per-batch-group (G,3,3,C,O) weights
+// (K3-grouped, the batched decoder heads of models/multihead.py), where batch
+// entry b of the (G*B0, H, W, C) input uses weight group g = b / B0. Computes
+//   y[b,h,w,o] = round( sum_{dh,dw,c} relu?(x[b, clamp(h+dh-1), clamp(w+dw-1), c]) * k[g,dh,dw,c,o]
+//                       + bias[g,o] + residual[b,h,w,o] )
 // with the sum, bias and residual in fp32 and one rounding to the input
-// dtype, in conv3x3_xla's order.
+// dtype, in conv3x3_xla's order. The shared form is the grouped one with G=1.
 //
 // What bounds it on an H100: at the decoder shapes (C, O = 64..256 at
 // 74^2..296^2 pixels) it does 18*C flops per output element against about
@@ -22,6 +26,10 @@
 // the tensor cores through WMMA 16x16x16 tiles with fp32 accumulation; the
 // fp32 variant uses plain fp32 FMAs. The epilogue adds bias and residual in
 // fp32 before the single rounding.
+// The weight group is the grid's z index: each group is its own implicit
+// GEMM with M = B0*H*W, so no 64-pixel tile straddles two weight groups, and
+// a block offsets the weights by g*9*C*O and the bias by g*O. Nothing of the
+// TPU's lane-group layout (conv.py:12-22) is carried over.
 // Deliberately simple: scalar loads, no cp.async/TMA double buffering, no
 // wgmma. Those are later optimisations.
 
@@ -126,7 +134,7 @@ template <> struct TileMma<__nv_bfloat16> {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-               const T* __restrict__ res, T* __restrict__ y, int B, int H, int W, int C, int O,
+               const T* __restrict__ res, T* __restrict__ y, int B0, int H, int W, int C, int O,
                int relu) {
   using Tl = Tile<T>;
   __shared__ __align__(128) unsigned char smem[Tl::total];
@@ -135,8 +143,15 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __
   T* bs = reinterpret_cast<T*>(smem + Tl::a);
   float* cs = reinterpret_cast<float*>(smem);
 
+  // weight group g: batch entries [g*B0, (g+1)*B0), weights and bias of group g
+  const int g = blockIdx.z;
   const int64_t HW = static_cast<int64_t>(H) * W;
-  const int64_t M = B * HW;
+  const int64_t M = B0 * HW;
+  x += static_cast<int64_t>(g) * M * C;
+  y += static_cast<int64_t>(g) * M * O;
+  if (res != nullptr) res += static_cast<int64_t>(g) * M * O;
+  w += static_cast<int64_t>(g) * 9 * C * O;
+  if (bias != nullptr) bias += static_cast<int64_t>(g) * O;
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kBM;
   const int n0 = blockIdx.y * kBN;
   const T zero = from_f<T>(0.f);
@@ -195,28 +210,43 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const float* bias, const void* res, void* y, int B,
+int launch(const void* x, const void* w, const float* bias, const void* res, void* y, int G, int B0,
            int H, int W, int C, int O, int relu, cudaStream_t stream) {
-  const int64_t M = static_cast<int64_t>(B) * H * W;
-  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), (O + kBN - 1) / kBN);
+  const int64_t M = static_cast<int64_t>(B0) * H * W;
+  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), (O + kBN - 1) / kBN, G);
   conv3x3_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), bias, static_cast<const T*>(res),
-      static_cast<T*>(y), B, H, W, C, O, relu);
+      static_cast<T*>(y), B0, H, W, C, O, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* x, const void* w, const void* bias, const void* res, void* y, int G, int B0,
+             int H, int W, int C, int O, int relu, int dtype, void* stream) {
+  if (G <= 0 || G > 65535 || B0 <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) return launch<__nv_bfloat16>(x, w, b, res, y, G, B0, H, W, C, O, relu, st);
+  if (dtype == kFloat32) return launch<float>(x, w, b, res, y, G, B0, H, W, C, O, relu, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x: (B, H, W, C), w: (3, 3, C, O), res/y: (B, H, W, O), all contiguous in
-// the given dtype; bias: (O,) fp32 or null; res may be null.
+// K3. x: (B, H, W, C), w: (3, 3, C, O), res/y: (B, H, W, O), all contiguous
+// in the given dtype; bias: (O,) fp32 or null; res may be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int moge_conv3x3(const void* x, const void* w, const void* bias, const void* res,
                             void* y, int B, int H, int W, int C, int O, int relu, int dtype,
                             void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float* b = static_cast<const float*>(bias);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(x, w, b, res, y, B, H, W, C, O, relu, st);
-  if (dtype == kFloat32) return launch<float>(x, w, b, res, y, B, H, W, C, O, relu, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(x, w, bias, res, y, 1, B, H, W, C, O, relu, dtype, stream);
+}
+
+// K3-grouped. x: (G*B0, H, W, C), w: (G, 3, 3, C, O), res/y: (G*B0, H, W, O),
+// all contiguous in the given dtype; bias: (G, O) fp32 or null; res may be
+// null. Batch entry b uses weight group b / B0.
+extern "C" int moge_conv3x3_grouped(const void* x, const void* w, const void* bias, const void* res,
+                                    void* y, int G, int B0, int H, int W, int C, int O, int relu,
+                                    int dtype, void* stream) {
+  return dispatch(x, w, bias, res, y, G, B0, H, W, C, O, relu, dtype, stream);
 }

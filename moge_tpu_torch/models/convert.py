@@ -1,10 +1,11 @@
-"""Weight bridge from the JAX package's parameter tree to this port.
+"""Weight bridge from the JAX package's parameter trees to this port.
 
-``state_dict_from_jax_params`` writes the microsoft/MoGe state-dict layout
-with ``moge_tpu.models.convert.export_moge2`` (numpy-only; imported inside
-the function) and returns torch tensors that ``MoGeV2.load_state_dict(...,
-strict=True)`` takes without renames. Tests use it so that both packages
-compute with the same weights.
+``state_dict_from_jax_params`` (MoGe-2) and ``v1_state_dict_from_jax_params``
+(MoGe-1) write the microsoft/MoGe state-dict layout with
+``moge_tpu.models.convert.export_moge2`` / ``export_moge1`` (numpy-only;
+imported inside the functions) and return torch tensors that the port's
+``load_state_dict(..., strict=True)`` takes without renames. Tests use them
+so that both packages compute with the same weights.
 """
 
 from __future__ import annotations
@@ -14,7 +15,11 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax_params"]
+__all__ = ["state_dict_from_jax_params", "v1_state_dict_from_jax_params"]
+
+
+def _to_torch(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def state_dict_from_jax_params(config: Mapping[str, Any], params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -22,5 +27,11 @@ def state_dict_from_jax_params(config: Mapping[str, Any], params: Mapping[str, A
     ``blocks_{i}`` layout, or the stacked one) -> torch state dict."""
     from moge_tpu.models.convert import export_moge2
 
-    sd = export_moge2(config, params)["model"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_torch(export_moge2(config, params)["model"])
+
+
+def v1_state_dict_from_jax_params(config: Mapping[str, Any], params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX MoGe-1 params (unrolled ``blocks_{i}`` layout) -> torch state dict."""
+    from moge_tpu.models.convert import export_moge1
+
+    return _to_torch(export_moge1(config, params)["model"])

@@ -1,11 +1,12 @@
-"""MoGe-2 building blocks, NHWC (port of moge_tpu/models/modules.py).
+"""MoGe building blocks, NHWC (port of moge_tpu/models/modules.py).
 
-The parts the MoGe-2 presets use: the DINOv2 encoder wrapper, residual
-conv blocks without norms, the ``conv_transpose`` and ``bilinear``
-resamplers, the MLP, the per-level UV maps and the ConvStack pyramid with
-its folded finest-level epilogue. Module and parameter names are the
-microsoft/MoGe state-dict names. 3x3 convs run kernel K3 on the card (its
-backward in plain PyTorch); every parameter is differentiable.
+The DINOv2 encoder wrapper, the residual conv block with its norms (fp32
+statistics), activations and skip projection, the seven resampler flavours,
+the MLP, the per-level UV maps and the ConvStack pyramid with its folded
+finest-level epilogue. Module and parameter names are the microsoft/MoGe
+state-dict names. 3x3 convs run kernel K3 on the card (its backward in plain
+PyTorch); other kernel sizes and the norms are plain PyTorch, as the JAX
+package leaves them to XLA. Every parameter is differentiable.
 """
 
 from __future__ import annotations
@@ -13,17 +14,35 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import conv3x3_replicate, depth_to_space2, up2_conv3_expanded
+from ..ops.resize import resize_2d
 from ._weights import cast, derived
-from .dinov2 import VIT_ARCHS, DinoVisionTransformer, Linear
+from .dinov2 import VIT_ARCHS, DinoVisionTransformer, LayerNorm, Linear
 
-__all__ = ["DINOv2Encoder", "ResidualConvBlock", "ConvTranspose2x", "Resampler", "MLP",
-           "ConvStack", "make_level_uv"]
+__all__ = ["DINOv2Encoder", "ResidualConvBlock", "ConvTranspose2x", "Resampler", "MLP", "Norm2d",
+           "ConvStack", "Conv1x1", "Conv3x3", "conv2d", "make_level_uv", "init_params"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+RESAMPLERS = ("pixel_shuffle", "nearest", "bilinear", "conv_transpose", "pixel_unshuffle", "avg_pool", "max_pool")
+
+_ACTIVATIONS = {
+    "relu": (nn.ReLU, F.relu),
+    "leaky_relu": (lambda: nn.LeakyReLU(0.2), lambda x: F.leaky_relu(x, 0.2)),
+    "silu": (nn.SiLU, F.silu),
+    "elu": (nn.ELU, F.elu),
+}
+
+
+def _activation(name: str):
+    """(module class, function) of an activation's config name (JAX ``_activation``)."""
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"Unsupported activation function: {name}")
+    return _ACTIVATIONS[name]
 
 
 class Conv1x1(nn.Module):
@@ -42,6 +61,28 @@ class Conv1x1(nn.Module):
         return x @ self.matrix(x.dtype) + cast(self, "bias", x.dtype)
 
 
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    """torch conv weight (..., O, I, kh, kw) -> (..., kh, kw, I, O)."""
+    return w.movedim((-4, -3), (-1, -2))
+
+
+def _fold_linear(kernel: torch.Tensor, bias: torch.Tensor, fold_w: torch.Tensor, fold_b: torch.Tensor):
+    """A conv's (..., 3, 3, C, O) kernel and (..., O) bias followed by a 1x1
+    conv of torch weight (..., P, O, 1, 1) and bias (..., P) -> the (..., 3,
+    3, C, P) kernel and (..., P) bias of their composition (exact linear
+    algebra, in the inputs' fp32). Leading axes stack independent convs."""
+    m = fold_w[..., 0, 0].transpose(-1, -2)
+    return torch.einsum("...hwco,...op->...hwcp", kernel, m), (bias.unsqueeze(-2) @ m).squeeze(-2) + fold_b
+
+
+def _fold_input(w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor):
+    """A 1x1 conv (torch weight (..., D, C, 1, 1), bias (..., D)) followed by
+    a 1x1 conv of weight (..., P, D, 1, 1) without its bias -> the (..., C,
+    P) matrix and (..., P) bias of their composition, in the inputs' fp32."""
+    m_out = w_out[..., 0, 0].transpose(-1, -2)
+    return w_in[..., 0, 0].transpose(-1, -2) @ m_out, (b_in.unsqueeze(-2) @ m_out).squeeze(-2)
+
+
 class Conv3x3(nn.Module):
     """3x3 replicate-pad conv (torch weight (O, I, 3, 3)) on NHWC, kernel K3."""
 
@@ -51,10 +92,19 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                input_relu: bool = False) -> torch.Tensor:
-        kernel = derived(self, ("hwio", x.dtype), lambda w: w.permute(2, 3, 1, 0).contiguous().to(x.dtype),
-                         self.weight)
-        return conv3x3_replicate(x, kernel, self.bias, residual, input_relu)
+                input_relu: bool = False, fold: Optional[Conv1x1] = None) -> torch.Tensor:
+        """[ReLU,] conv [then the 1x1 ``fold``, folded into the kernel in fp32
+        before the cast to the compute dtype] [+ residual]."""
+        if fold is None:
+            kernel = derived(self, ("hwio", x.dtype), lambda w: _hwio(w).contiguous().to(x.dtype), self.weight)
+            return conv3x3_replicate(x, kernel, self.bias, residual, input_relu)
+
+        def folded(w, b, fold_w, fold_b):
+            kernel, b = _fold_linear(_hwio(w), b, fold_w, fold_b)
+            return kernel.to(x.dtype).contiguous(), b
+
+        kernel, bias = derived(self, ("folded", x.dtype), folded, self.weight, self.bias, fold.weight, fold.bias)
+        return conv3x3_replicate(x, kernel, bias, residual, input_relu)
 
     def forward_up2(self, x: torch.Tensor, fold: Optional[Conv1x1] = None) -> torch.Tensor:
         """Bilinear-2x upsample then this conv [then the 1x1 ``fold``], as one
@@ -66,11 +116,9 @@ class Conv3x3(nn.Module):
         reaches the original 3x3 (and fold) weights."""
 
         def expand(w, b, *fold_params):
-            kernel = w.permute(2, 3, 1, 0)
+            kernel = _hwio(w)
             if fold_params:
-                fold_w = fold_params[0][:, :, 0, 0].t()
-                kernel = torch.einsum("hwco,op->hwcp", kernel, fold_w)
-                b = b @ fold_w + fold_params[1]
+                kernel, b = _fold_linear(kernel, b, *fold_params)
             return up2_conv3_expanded(kernel, b, x.dtype)
 
         params = (self.weight, self.bias) + (() if fold is None else (fold.weight, fold.bias))
@@ -78,26 +126,93 @@ class Conv3x3(nn.Module):
         return depth_to_space2(conv3x3_replicate(x, wq, bq))
 
 
+class ConvKxK(nn.Module):
+    """k x k replicate-pad conv (k not 1 or 3) on NHWC, in plain PyTorch: a
+    replicate pad and ``F.conv2d`` in the compute dtype (the JAX package
+    runs these through XLA's ``nn.Conv``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        weight, bias = cast(self, "weight", x.dtype), cast(self, "bias", x.dtype)
+        xp = F.pad(x.permute(0, 3, 1, 2), (k // 2,) * 4, mode="replicate")
+        return F.conv2d(xp, weight, bias).permute(0, 2, 3, 1)
+
+
+def conv2d(in_channels: int, out_channels: int, kernel_size: int = 3) -> nn.Module:
+    """The replicate-pad conv of a kernel size: K3 for 3x3, a matmul for 1x1,
+    plain otherwise."""
+    if kernel_size == 3:
+        return Conv3x3(in_channels, out_channels)
+    if kernel_size == 1:
+        return Conv1x1(in_channels, out_channels)
+    return ConvKxK(in_channels, out_channels, kernel_size)
+
+
+class Norm2d(nn.Module):
+    """Config-selected norm over NHWC with fp32 statistics (JAX ``Norm2d``):
+    'group_norm' (C/32 groups) and 'layer_norm' (one group: over H, W and C,
+    not kernel K1's per-row LayerNorm) with fp32 affine parameters,
+    'instance_norm' without them, 'none'. eps 1e-5, as torch's."""
+
+    def __init__(self, kind: str, channels: int):
+        super().__init__()
+        if kind not in ("none", "instance_norm", "group_norm", "layer_norm"):
+            raise ValueError(f"Unsupported norm: {kind}")
+        self.kind = kind
+        self.groups = channels // 32 if kind == "group_norm" else 1
+        if kind in ("group_norm", "layer_norm"):
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "none":
+            return x
+        b, h, w, c = x.shape
+        if self.kind == "instance_norm":
+            x32, dims = x.float(), (1, 2)
+        else:
+            x32, dims = x.float().reshape(b, h, w, self.groups, c // self.groups), (1, 2, 4)
+        mean = x32.mean(dims, keepdim=True)
+        var = (x32 - mean).square().mean(dims, keepdim=True)
+        y = ((x32 - mean) * torch.rsqrt(var + 1e-5)).reshape(b, h, w, c)
+        if self.kind != "instance_norm":
+            y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
 class ResidualConvBlock(nn.Module):
-    """[norm, act, conv3, norm, act, conv3] + skip, with norms 'none' and the
-    ReLU fused into the convs (exact: ReLU commutes with replicate padding)."""
+    """[norm, act, conv3, norm, act, conv3] + skip (a 1x1 projection when the
+    channel count changes). A ReLU is fused into the convs (exact: ReLU
+    commutes with replicate padding); other activations run between."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  hidden_channels: Optional[int] = None, activation: str = "relu",
-                 in_norm: str = "none", hidden_norm: str = "none"):
+                 in_norm: str = "layer_norm", hidden_norm: str = "group_norm"):
         super().__init__()
         out_channels = out_channels or in_channels
         hidden_channels = hidden_channels or in_channels
-        if activation != "relu" or in_norm != "none" or hidden_norm != "none" or out_channels != in_channels:
-            raise NotImplementedError("only ReLU blocks without norms or skip projection are ported yet "
-                                      f"(got {activation}/{in_norm}/{hidden_norm}, {in_channels}->{out_channels})")
+        act_module, self.act = _activation(activation)
+        self.fuse_relu = activation == "relu"
         # indices follow the reference Sequential: 0 norm, 1 act, 2 conv, 3 norm, 4 act, 5 conv
-        self.layers = nn.Sequential(nn.Identity(), nn.ReLU(), Conv3x3(in_channels, hidden_channels),
-                                    nn.Identity(), nn.ReLU(), Conv3x3(hidden_channels, out_channels))
+        self.layers = nn.Sequential(Norm2d(in_norm, in_channels), act_module(),
+                                    Conv3x3(in_channels, hidden_channels),
+                                    Norm2d(hidden_norm, hidden_channels), act_module(),
+                                    Conv3x3(hidden_channels, out_channels))
+        if in_channels != out_channels:
+            self.skip_connection = Conv1x1(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.layers[2](x, input_relu=True)
-        return self.layers[5](h, residual=x, input_relu=True)
+        skip = self.skip_connection(x) if hasattr(self, "skip_connection") else x
+        relu = self.fuse_relu
+        h = self.layers[0](x)
+        h = self.layers[2](h if relu else self.act(h), input_relu=relu)
+        h = self.layers[3](h)
+        return self.layers[5](h if relu else self.act(h), residual=skip, input_relu=relu)
 
 
 class ConvTranspose2x(nn.Module):
@@ -118,24 +233,65 @@ class ConvTranspose2x(nn.Module):
         return y + cast(self, "bias", x.dtype)
 
 
+def pixel_shuffle(x: torch.Tensor) -> torch.Tensor:
+    """torch PixelShuffle(2) on NHWC: input channels ordered (C, di, dj)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h, w, c // 4, 2, 2).permute(0, 1, 4, 2, 5, 3).reshape(b, 2 * h, 2 * w, c // 4)
+
+
+def pixel_unshuffle(x: torch.Tensor) -> torch.Tensor:
+    """torch PixelUnshuffle(2) on NHWC: output channels ordered (C, di, dj)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4).reshape(b, h // 2, w // 2, 4 * c)
+
+
+def _pool(x: torch.Tensor, fn) -> torch.Tensor:
+    return fn(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
 class Resampler(nn.Sequential):
-    """x2 upsampler: 'conv_transpose' (ConvTranspose2x -> conv3x3) or
-    'bilinear' (upsample -> conv3x3, fused into one low-resolution conv)."""
+    """x2 up/down sampler in the seven flavours of the reference
+    (``RESAMPLERS``), with the reference's Sequential indices:
+    pixel_shuffle (0 conv, 1 shuffle, 2 conv), nearest / bilinear / pixel_unshuffle
+    (0 resample, 1 conv), conv_transpose (0 deconv, 1 conv), avg_pool / max_pool
+    (0 conv, 1 pool). The bilinear one runs fused (one low-resolution conv)."""
 
     def __init__(self, in_channels: int, out_channels: int, type_: str):
-        if type_ == "conv_transpose":
+        if type_ == "pixel_shuffle":
+            super().__init__(Conv3x3(in_channels, out_channels * 4), nn.PixelShuffle(2),
+                             Conv3x3(out_channels, out_channels))
+        elif type_ in ("nearest", "bilinear"):
+            super().__init__(nn.Upsample(scale_factor=2, mode=type_), Conv3x3(in_channels, out_channels))
+        elif type_ == "conv_transpose":
             super().__init__(ConvTranspose2x(in_channels, out_channels), Conv3x3(out_channels, out_channels))
-        elif type_ == "bilinear":
-            super().__init__(nn.Upsample(scale_factor=2, mode="bilinear", align_corners=False),
-                             Conv3x3(in_channels, out_channels))
+        elif type_ == "pixel_unshuffle":
+            super().__init__(nn.PixelUnshuffle(2), Conv3x3(in_channels * 4, out_channels))
+        elif type_ in ("avg_pool", "max_pool"):
+            super().__init__(Conv3x3(in_channels, out_channels),
+                             nn.AvgPool2d(2) if type_ == "avg_pool" else nn.MaxPool2d(2))
         else:
-            raise NotImplementedError(f"resampler {type_!r} is not ported yet")
+            raise ValueError(f"Unsupported resampler type: {type_}")
         self.type_ = type_
 
     def forward(self, x: torch.Tensor, fold: Optional[Conv1x1] = None) -> torch.Tensor:
-        if self.type_ == "bilinear":
+        """Resample; a following 1x1 ``fold`` goes into the last conv (into
+        the first for avg_pool, which commutes with it; max_pool refuses it)."""
+        t = self.type_
+        if t == "pixel_shuffle":
+            return self[2](pixel_shuffle(self[0](x)), fold=fold)
+        if t == "bilinear":
             return self[1].forward_up2(x, fold)
-        return self[1](self[0](x))  # ConvStack folds only into a bilinear resampler
+        if t == "nearest":
+            return self[1](resize_2d(x, (2 * x.shape[1], 2 * x.shape[2]), mode="nearest"), fold=fold)
+        if t == "conv_transpose":
+            return self[1](self[0](x), fold=fold)
+        if t == "pixel_unshuffle":
+            return self[1](pixel_unshuffle(x), fold=fold)
+        if t == "avg_pool":
+            return _pool(self[0](x, fold=fold), F.avg_pool2d)
+        if fold is not None:
+            raise ValueError("cannot fold a projection through max_pool")
+        return _pool(self[0](x), F.max_pool2d)
 
 
 class MLP(nn.Sequential):
@@ -156,8 +312,11 @@ class ConvStack(nn.Module):
     the base resolution.
 
     When the finest level is purely linear (no res blocks, an output
-    projection), the output projection and the finest input projection are
-    folded into the last resampler's conv, as in the JAX package."""
+    projection) and the last resampler is not a max_pool, the output
+    projection and the finest input projection are folded into the last
+    resampler's conv, as in the JAX package. (JAX pads the folded channels
+    to at least 32 for its kernel; zero columns change no output, so the
+    port does not.)"""
 
     def __init__(self, dim_in, dim_res_blocks: Sequence[int], dim_out, resamplers,
                  dim_times_res_block_hidden: int = 1, num_res_blocks: Union[int, Sequence[int]] = 1,
@@ -182,7 +341,7 @@ class ConvStack(nn.Module):
         self.output_blocks = nn.ModuleList(
             Conv1x1(d, do) if do is not None else nn.Identity() for d, do in zip(dim_res_blocks, dims_out))
         self.fuse_last = (n >= 2 and res_counts[n - 1] == 0 and dims_out[n - 1] is not None
-                          and types[n - 2] == "bilinear")
+                          and types[n - 2] != "max_pool")
 
     def forward(self, in_features: List[Optional[torch.Tensor]]) -> List[torch.Tensor]:
         n = len(self.dim_res_blocks)
@@ -217,8 +376,8 @@ class ConvStack(nn.Module):
         the folded conv), as one matmul: weights multiplied in fp32, then cast."""
         if isinstance(in_proj, Conv1x1):
             def fold(w_in, b_in, w_out):
-                m_out = w_out[:, :, 0, 0].t()
-                return (w_in[:, :, 0, 0].t() @ m_out).to(feat.dtype), (b_in @ m_out).to(feat.dtype)
+                w, b = _fold_input(w_in, b_in, w_out)
+                return w.to(feat.dtype), b.to(feat.dtype)
 
             w, b = derived(in_proj, ("fold", feat.dtype), fold, in_proj.weight, in_proj.bias, out_proj.weight)
             return feat @ w + b
@@ -252,6 +411,26 @@ class DINOv2Encoder(nn.Module):
             y = proj(patches.reshape(b, token_rows, token_cols, -1))
             x = y if x is None else x + y
         return x, features[-1][1]
+
+
+def init_params(module: nn.Module, seed: int) -> None:
+    """Random init with the JAX package's distributions, on the module's
+    device: lecun-normal (truncated) kernels, zero biases, pos-embed
+    N(0, 0.02), zero cls/mask tokens, LayerScale and norm scales ones."""
+    gen = torch.Generator(device=next(module.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for sub in module.modules():
+            for leaf, p in sub.named_parameters(recurse=False):
+                if leaf == "pos_embed":
+                    p.normal_(0.0, 0.02, generator=gen)
+                elif leaf in ("bias", "cls_token", "mask_token"):
+                    p.zero_()
+                elif leaf == "gamma" or isinstance(sub, (LayerNorm, Norm2d)):
+                    p.fill_(1.0)
+                else:  # torch layout: outputs on dim 0, except ConvTranspose's (I, O, s, s)
+                    fan_in = p.numel() // p.shape[1 if isinstance(sub, ConvTranspose2x) else 0]
+                    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # flax lecun_normal
+                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
 def make_level_uv(base_h: int, base_w: int, num_levels: int, aspect_ratio: float, batch: int,

@@ -1,4 +1,4 @@
-"""Published MoGe-2 architecture presets, as plain config dicts.
+"""Published MoGe-1 and MoGe-2 architecture presets, as plain config dicts.
 
 The same schema and values as ``moge_tpu.models.presets`` (the checkpoints'
 ``model_config``), kept here so the port builds models with no import from
@@ -47,6 +47,24 @@ MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
     "moge-2-vitl-normal": {"version": "v2", "config": _v2_config("dinov2_vitl14", 1024, [5, 11, 17, 23], 1024)},
     "moge-2-vitb-normal": {"version": "v2", "config": _v2_config("dinov2_vitb14", 768, [2, 5, 8, 11], 768)},
     "moge-2-vits-normal": {"version": "v2", "config": _v2_config("dinov2_vits14", 384, [2, 5, 8, 11], 384)},
+    # MoGe-1 (the published Ruicheng/moge-vitl checkpoint's model_config)
+    "moge-vitl": {
+        "version": "v1",
+        "config": {
+            "encoder": "dinov2_vitl14",
+            "intermediate_layers": 4,
+            "dim_proj": 512,
+            "dim_upsample": [256, 128, 64],
+            "dim_times_res_block_hidden": 2,
+            "num_res_blocks": 2,
+            "remap_output": "exp",
+            "res_block_norm": "layer_norm",
+            "num_tokens_range": [1200, 2500],
+            "last_res_blocks": 0,
+            "last_conv_channels": 32,
+            "last_conv_size": 1,
+        },
+    },
 }
 
 

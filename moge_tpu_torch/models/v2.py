@@ -2,7 +2,10 @@
 
 ``MoGeV2`` is the nn.Module (encoder, neck, heads, scale MLP) with the
 microsoft/MoGe state-dict names; its ``forward(image, num_tokens)`` is the
-differentiable training forward. ``MoGeModel`` wraps it with ``infer``,
+differentiable training forward. With ``batched_heads`` (default: the
+``MOGE_BATCHED_HEADS`` environment variable, off) and a batchable head
+family, ``decode`` runs the output heads as one grouped pass
+(``multihead.py``) instead of one after another. ``MoGeModel`` wraps it with ``infer``,
 ``init_random`` and ``from_pretrained``. ``infer`` takes the JAX package's
 keyword arguments and returns its keys: points, depth, intrinsics, mask,
 normal. Compute is bf16 by default (``use_fp16=True``) or fp32; the
@@ -22,8 +25,8 @@ from torch import nn
 from ..ops.geometry import depth_map_to_point_map, intrinsics_from_focal_center
 from ..ops.resize import resize_2d
 from ..ops.solvers import recover_focal_shift
-from .dinov2 import LayerNorm
-from .modules import MLP, ConvStack, ConvTranspose2x, DINOv2Encoder, make_level_uv
+from .modules import MLP, ConvStack, DINOv2Encoder, init_params, make_level_uv
+from .multihead import apply_heads_batched, batched_heads_default, heads_batchable
 
 __all__ = ["MoGeV2", "MoGeModel", "apply_epilogue", "postprocess", "remap_points", "base_token_grid"]
 
@@ -56,15 +59,21 @@ class MoGeV2(nn.Module):
     def __init__(self, encoder: Dict[str, Any], neck: Dict[str, Any],
                  points_head: Optional[Dict[str, Any]] = None, mask_head: Optional[Dict[str, Any]] = None,
                  normal_head: Optional[Dict[str, Any]] = None, scale_head: Optional[Dict[str, Any]] = None,
-                 remap_output: str = "linear", num_tokens_range=(1200, 3600)):
+                 remap_output: str = "linear", num_tokens_range=(1200, 3600),
+                 batched_heads: Optional[bool] = None):
         super().__init__()
         self.remap_output = remap_output
         self.num_tokens_range = list(num_tokens_range)
         self.encoder = DINOv2Encoder(**encoder)
         self.neck = ConvStack(**neck)
+        head_cfgs = []
         for name, cfg in (("points_head", points_head), ("normal_head", normal_head), ("mask_head", mask_head)):
             if cfg is not None:
                 setattr(self, name, ConvStack(**cfg))
+                head_cfgs.append(cfg)
+        if batched_heads is None:
+            batched_heads = batched_heads_default()
+        self.batched_heads = batched_heads and heads_batchable(head_cfgs)
         if scale_head is not None:
             self.scale_head = MLP(**scale_head)
 
@@ -79,10 +88,12 @@ class MoGeV2(nn.Module):
         uvs = make_level_uv(base_h, base_w, 5, aspect_ratio, batch, dtype, image_14.device)
         in_features = [torch.cat([features, uvs[0]], dim=-1), *uvs[1:]]
         neck_features = self.neck(in_features)
-        out: Dict[str, torch.Tensor] = {}
-        for name in _HEADS:  # heads run one after another
-            if hasattr(self, name):
-                out[name.replace("_head", "_raw")] = getattr(self, name)(neck_features)[-1]
+        names = [name for name in _HEADS if hasattr(self, name)]
+        if self.batched_heads:  # one grouped pass over all heads
+            raws = apply_heads_batched([getattr(self, name) for name in names], neck_features, dtype)
+        else:  # heads one after another
+            raws = [getattr(self, name)(neck_features)[-1] for name in names]
+        out: Dict[str, torch.Tensor] = {name.replace("_head", "_raw"): raw for name, raw in zip(names, raws)}
         if hasattr(self, "scale_head"):
             out["metric_scale"] = torch.exp(self.scale_head(cls_token)[..., 0])
         return out
@@ -102,23 +113,8 @@ class MoGeV2(nn.Module):
         return apply_epilogue(raw, img_h, img_w, self.remap_output)
 
     def init_random(self, seed: int = 0) -> "MoGeV2":
-        """Random init with the JAX package's distributions, on the module's
-        device: lecun-normal (truncated) kernels, zero biases, pos-embed
-        N(0, 0.02), zero cls/mask tokens, LayerScale and LayerNorm scale ones."""
-        gen = torch.Generator(device=next(self.parameters()).device).manual_seed(seed)
-        with torch.no_grad():
-            for module in self.modules():
-                for leaf, p in module.named_parameters(recurse=False):
-                    if leaf == "pos_embed":
-                        p.normal_(0.0, 0.02, generator=gen)
-                    elif leaf in ("bias", "cls_token", "mask_token"):
-                        p.zero_()
-                    elif leaf == "gamma" or isinstance(module, LayerNorm):
-                        p.fill_(1.0)
-                    else:  # torch layout: outputs on dim 0, except ConvTranspose's (I, O, s, s)
-                        fan_in = p.numel() // p.shape[1 if isinstance(module, ConvTranspose2x) else 0]
-                        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # flax lecun_normal
-                        nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
+        """Random init with the JAX package's distributions (``init_params``)."""
+        init_params(self, seed)
         return self
 
 
@@ -195,27 +191,29 @@ def postprocess(output: Dict[str, torch.Tensor], aspect_ratio: float,
 class MoGeModel:
     """User-facing MoGe-2: holds a ``MoGeV2`` on a device and runs ``infer``."""
 
+    version = "v2"
     _CONFIG_KEYS = ("encoder", "neck", "points_head", "mask_head", "normal_head",
                     "scale_head", "remap_output", "num_tokens_range")
 
     def __init__(self, config: Dict[str, Any], device: Union[str, torch.device] = "cpu",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, batched_heads: Optional[bool] = None):
         self.config = {k: v for k, v in config.items() if k in self._CONFIG_KEYS}
         self.device = torch.device(device)
         self.dtype = dtype
         with self.device:  # parameters are allocated on the device (uninitialised until loaded)
-            self.module = MoGeV2(**self.config).eval()
+            self.module = MoGeV2(**self.config, batched_heads=batched_heads).eval()
 
     @classmethod
     def from_pretrained(cls, path, device: Union[str, torch.device] = "cpu", dtype: torch.dtype = torch.bfloat16,
                         model_kwargs: Optional[Dict[str, Any]] = None) -> "MoGeModel":
         """Load a reference-format checkpoint ``{'model_config', 'model'}``."""
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        config = dict(ckpt["model_config"])
+        from .io import load_checkpoint
+
+        config, state_dict = load_checkpoint(path, version="v2")
         if model_kwargs:
             config.update(model_kwargs)
         model = cls(config, device, dtype)
-        model.module.load_state_dict(ckpt["model"], strict=True)
+        model.module.load_state_dict(state_dict, strict=True)
         return model
 
     def init_random(self, seed: int = 0) -> "MoGeModel":

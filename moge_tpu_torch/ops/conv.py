@@ -14,6 +14,13 @@ honoured), as the JAX package's VJP is an XLA formulation.
 conv, computed as one K3 conv at the low resolution over parity-expanded
 weights (``up2_conv3_weights``) and a depth-to-space.
 
+Grouped form (the batched decoder heads): a (G, 3, 3, C, O) kernel with a
+(G, O) bias applies weight group b // B0 to batch entry b of a (G*B0, H, W,
+C) input, as the JAX package's ``conv3x3_xla`` and ``_conv3x3_pallas`` do.
+CUDA tensors run kernel K3-grouped (the same source, the group on the
+grid), counted in ``GROUPED_LAUNCHES``; its backward is again the plain
+version's VJP (JAX's grouped VJP is the vmapped XLA formulation).
+
 Weights use the JAX layout (3, 3, C, O); activations are NHWC.
 """
 
@@ -29,16 +36,34 @@ from . import _build
 from ._vjp import plain_vjp
 
 __all__ = ["conv3x3_replicate", "conv3x3_plain", "conv3x3_up2_bilinear", "up2_conv3_weights",
-           "up2_conv3_expanded", "depth_to_space2", "LAUNCHES"]
+           "up2_conv3_expanded", "depth_to_space2", "LAUNCHES", "GROUPED_LAUNCHES"]
 
-LAUNCHES = 0  # kernel launches made by conv3x3_replicate (never by the plain version)
+LAUNCHES = 0  # K3 launches made by conv3x3_replicate (never by the plain version)
+GROUPED_LAUNCHES = 0  # K3-grouped launches (5-dim kernels), counted apart
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_GROUPED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _groups(x: torch.Tensor, kernel: torch.Tensor) -> int:
+    """G of a grouped (G, 3, 3, C, O) kernel (raises unless it divides the batch), 0 for a shared one."""
+    if kernel.dim() != 5:
+        return 0
+    G = kernel.shape[0]
+    if G <= 0 or x.shape[0] % G:
+        raise ValueError(f"grouped conv3x3: batch {x.shape[0]} is not a multiple of the {G} weight groups")
+    return G
 
 
 def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
                   residual: Optional[torch.Tensor] = None, input_relu: bool = False) -> torch.Tensor:
+    G = _groups(x, kernel)
+    if G:  # one shared-weight conv per group of B0 = B // G batch entries
+        b0 = x.shape[0] // G
+        return torch.cat([conv3x3_plain(x[g * b0:(g + 1) * b0], kernel[g], None if bias is None else bias[g],
+                                        None if residual is None else residual[g * b0:(g + 1) * b0], input_relu)
+                          for g in range(G)])
     xf = x.float()
     if input_relu:
         xf = xf.clamp_min(0)
@@ -52,20 +77,22 @@ def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Te
 
 
 def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, GROUPED_LAUNCHES
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"conv3x3 kernel takes a contiguous NHWC input, got {tuple(x.shape)}")
     B, H, W, C = x.shape
-    if kernel.shape[:3] != (3, 3, C) or kernel.dim() != 4:
-        raise ValueError(f"conv3x3 kernel weights must be (3, 3, {C}, O), got {tuple(kernel.shape)}")
-    O = kernel.shape[3]
+    G = _groups(x, kernel)
+    lead = (G,) if G else ()
+    if kernel.dim() != 4 + bool(G) or kernel.shape[len(lead):len(lead) + 3] != (3, 3, C):
+        raise ValueError(f"conv3x3 kernel weights must be ([G,] 3, 3, {C}, O), got {tuple(kernel.shape)}")
+    O = kernel.shape[-1]
     if kernel.dtype != x.dtype or not kernel.is_contiguous() or kernel.device != x.device:
         raise ValueError("conv3x3 kernel weights must be contiguous, in the input's dtype and device")
-    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (O,)
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (*lead, O)
                              or not bias.is_contiguous() or bias.device != x.device):
-        raise ValueError(f"conv3x3 bias must be a contiguous fp32 ({O},) tensor on {x.device}")
+        raise ValueError(f"conv3x3 bias must be a contiguous fp32 {(*lead, O)} tensor on {x.device}")
     if residual is not None and (residual.shape != (B, H, W, O) or residual.dtype != x.dtype
                                  or not residual.is_contiguous() or residual.device != x.device):
         raise ValueError(f"conv3x3 residual must be a contiguous ({B}, {H}, {W}, {O}) {x.dtype} tensor")
@@ -73,15 +100,22 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
     if y.numel() == 0:
         return y
     lib = _build.load("conv3x3")
-    fn = lib.moge_conv3x3
-    fn.argtypes = _ARGTYPES
+    if G:
+        fn, dims = lib.moge_conv3x3_grouped, (G, B // G, H, W, C, O)
+        fn.argtypes = _GROUPED_ARGTYPES
+    else:
+        fn, dims = lib.moge_conv3x3, (B, H, W, C, O)
+        fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):  # launch on the tensors' card
         rc = fn(x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
                 None if residual is None else residual.data_ptr(), y.data_ptr(),
-                B, H, W, C, O, int(input_relu), _DTYPES[x.dtype], _build.stream_ptr(x))
+                *dims, int(input_relu), _DTYPES[x.dtype], _build.stream_ptr(x))
     _build.check(lib, rc, "conv3x3_replicate")
-    LAUNCHES += 1
+    if G:
+        GROUPED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return y
 
 
@@ -103,11 +137,14 @@ def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torc
                       residual: Optional[torch.Tensor] = None, input_relu: bool = False) -> torch.Tensor:
     """3x3 stride-1 NHWC conv with replicate padding and fp32 accumulation.
 
-    ``kernel``: (3, 3, C, O) in the input dtype; ``bias``: fp32 (O,) or None;
+    ``kernel``: (3, 3, C, O) in the input dtype, or grouped (G, 3, 3, C, O)
+    with batch entry b using group b // (B // G); ``bias``: fp32 (O,) or
+    (G, O), or None;
     ``residual``: (B, H, W, O) added in fp32 before the rounding;
     ``input_relu``: ReLU on the input (exact: it commutes with the padding).
-    CUDA tensors run kernel K3 (differentiable: backward in plain PyTorch);
-    CPU tensors run ``conv3x3_plain``."""
+    CUDA tensors run kernel K3, or K3-grouped for a grouped kernel
+    (differentiable: backward in plain PyTorch); CPU tensors run
+    ``conv3x3_plain``."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, kernel, bias, residual, input_relu)
     _build.require_cuda_tensor(x, "conv3x3_replicate")
@@ -129,18 +166,19 @@ _UP2_TAPS = {
 def up2_conv3_weights(kernel: torch.Tensor) -> torch.Tensor:
     """Compose a bilinear 2x upsample (align_corners=False) with a 3x3 conv.
 
-    (3, 3, C, O) -> (3, 3, C, 2, 2, O): taps over the LOW-res input producing
-    the 4 output parities. Exact, edges included: the upsample's edge clamp
-    and the conv's replicate pad both reduce to clamping low-res indices."""
-    C, O = kernel.shape[2], kernel.shape[3]
-    w = torch.zeros((3, 3, C, 2, 2, O), dtype=kernel.dtype, device=kernel.device)
+    ([G,] 3, 3, C, O) -> ([G,] 3, 3, C, 2, 2, O): taps over the LOW-res input
+    producing the 4 output parities (per weight group). Exact, edges
+    included: the upsample's edge clamp and the conv's replicate pad both
+    reduce to clamping low-res indices."""
+    lead, (C, O) = kernel.shape[:-4], kernel.shape[-2:]
+    w = torch.zeros((*lead, 3, 3, C, 2, 2, O), dtype=kernel.dtype, device=kernel.device)
     for a in range(2):
         for b in range(2):
             for du in range(3):
                 for dv in range(3):
                     for di, ar in _UP2_TAPS[(a, du)]:
                         for dj, ac in _UP2_TAPS[(b, dv)]:
-                            w[di + 1, dj + 1, :, a, b, :] += ar * ac * kernel[du, dv]
+                            w[..., di + 1, dj + 1, :, a, b, :] += ar * ac * kernel[..., du, dv, :, :]
     return w
 
 
@@ -152,15 +190,17 @@ def depth_to_space2(y: torch.Tensor) -> torch.Tensor:
 
 
 def up2_conv3_expanded(kernel: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
-    """(3, 3, C, O) kernel and (O,) bias of a conv that follows a bilinear 2x
-    upsample -> the K3 operands of the fused form: (3, 3, C, 4*O) parity
-    weights in ``dtype`` (expanded in fp32, cast last) and the (4*O,) fp32 bias."""
-    C, O = kernel.shape[2], kernel.shape[3]
-    wq = up2_conv3_weights(kernel.float()).reshape(3, 3, C, 4 * O).to(dtype).contiguous()
-    return wq, bias.float().repeat(4).contiguous()
+    """([G,] 3, 3, C, O) kernel and ([G,] O) bias of a conv that follows a
+    bilinear 2x upsample -> the K3 (K3-grouped) operands of the fused form:
+    ([G,] 3, 3, C, 4*O) parity weights in ``dtype`` (expanded in fp32, cast
+    last) and the ([G,] 4*O) fp32 bias."""
+    lead, (C, O) = kernel.shape[:-4], kernel.shape[-2:]
+    wq = up2_conv3_weights(kernel.float()).reshape(*lead, 3, 3, C, 4 * O).to(dtype).contiguous()
+    return wq, bias.float().repeat(*([1] * len(lead)), 4).contiguous()
 
 
 def conv3x3_up2_bilinear(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Bilinear-2x upsample then replicate-pad 3x3 conv, as one K3 conv at the
-    low resolution over parity-expanded weights plus a depth-to-space."""
+    low resolution over parity-expanded weights plus a depth-to-space. A
+    grouped ([G,] 3, 3, C, O) kernel expands per group and runs K3-grouped."""
     return depth_to_space2(conv3x3_replicate(x, *up2_conv3_expanded(kernel, bias, x.dtype)))

@@ -4,8 +4,9 @@ The JAX package builds its resampling matrices to reproduce
 ``torch.nn.functional.interpolate`` exactly, so the port calls
 ``F.interpolate`` itself, in the flavours inference uses: antialiased
 bilinear (input resize), plain bilinear (output epilogue), legacy nearest
-(the solver's downsample) and bicubic with a ``scale_factor`` (the DINOv2
-pos-embed interpolation).
+(the solver's downsample and the ``nearest`` resampler), bicubic with a
+``scale_factor`` (the DINOv2 pos-embed interpolation) and antialiased
+bicubic to a size (MoGe-1's input resize).
 """
 
 from __future__ import annotations

@@ -1,0 +1,106 @@
+"""The port's inference CLI (moge_tpu_torch.scripts.infer, grouped in
+moge_tpu_torch.scripts.cli) through click's CliRunner on the CPU: tiny
+MoGe-2 and MoGe-1 checkpoints written as reference-format ``.pt`` files,
+the maps and fov.json it writes, and the command group."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from moge_tpu_torch.models import import_model_class_by_version
+from moge_tpu_torch.models.v1 import MoGeModel as MoGeV1Model
+from moge_tpu_torch.models.v2 import MoGeModel
+from moge_tpu_torch.scripts import cli, infer
+from torch_tiny_config import TINY_CONFIG, make_points_perspective
+
+torch.set_num_threads(1)
+
+TINY_V1 = {"encoder": "dinov2_vitt14", "intermediate_layers": 4, "dim_proj": 32, "dim_upsample": [32, 16, 16],
+           "dim_times_res_block_hidden": 2, "num_res_blocks": 1, "remap_output": "exp",
+           "res_block_norm": "group_norm", "last_res_blocks": 1, "last_conv_channels": 32, "last_conv_size": 1}
+
+
+@pytest.fixture(scope="module")
+def checkpoints(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ckpt")
+    v2 = MoGeModel(TINY_CONFIG, "cpu", torch.float32).init_random(seed=0)
+    make_points_perspective(v2.module)
+    v1 = MoGeV1Model(TINY_V1, "cpu", torch.float32).init_random(seed=0)
+    paths = {}
+    for name, model, cfg in (("v2", v2, TINY_CONFIG), ("v1", v1, TINY_V1)):
+        paths[name] = root / f"{name}.pt"
+        torch.save({"model_config": cfg, "model": model.module.state_dict()}, paths[name])
+    return paths
+
+
+def _write_image(path, h, w, seed):
+    import cv2
+
+    image = np.random.default_rng(seed).uniform(0, 255, (h, w, 3)).astype(np.uint8)
+    cv2.imwrite(str(path), image)
+    return cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
+
+
+@pytest.mark.parametrize("version,num_tokens", [("v2", 16), ("v1", 64)])
+def test_infer_cli_writes_the_maps(checkpoints, tmp_path, version, num_tokens):
+    from click.testing import CliRunner
+
+    from moge_tpu.utils.io import read_exr
+
+    image = _write_image(tmp_path / "scene.png", 70, 84, seed=1)
+    out_dir = tmp_path / "out"
+    result = CliRunner().invoke(infer.command(), [
+        "-i", str(tmp_path / "scene.png"), "-o", str(out_dir), "--pretrained", str(checkpoints[version]),
+        "--version", version, "--device", "cpu", "--num_tokens", str(num_tokens), "--maps"])
+    assert result.exit_code == 0, result.output
+    save = out_dir / "scene"
+    for name in ("depth.exr", "points.exr", "mask.png", "fov.json", "image.jpg", "depth_vis.png"):
+        assert (save / name).is_file(), name
+    assert (save / "normal.png").is_file() == (version == "v2")
+
+    model = import_model_class_by_version(version).from_pretrained(checkpoints[version], device="cpu",
+                                                                   dtype=torch.float32)
+    want = model.infer(torch.from_numpy(image.astype(np.float32) / 255.0), num_tokens=num_tokens)
+    depth = read_exr(save / "depth.exr")
+    assert depth.shape == (70, 84)
+    np.testing.assert_array_equal(np.isfinite(depth), np.isfinite(want["depth"].numpy()))
+    fin = np.isfinite(depth)
+    np.testing.assert_allclose(depth[fin], want["depth"].numpy()[fin], rtol=1e-5)
+    assert read_exr(save / "points.exr").shape == (70, 84, 3)
+    fov = json.loads((save / "fov.json").read_text())
+    fx = want["intrinsics"][0, 0].item()
+    assert fov["fov_x"] == round(float(np.rad2deg(2 * np.arctan(0.5 / fx))), 2)
+
+
+def test_infer_cli_exports_meshes(checkpoints, tmp_path):
+    from click.testing import CliRunner
+
+    _write_image(tmp_path / "scene.png", 56, 56, seed=2)
+    result = CliRunner().invoke(infer.command(), [
+        "-i", str(tmp_path), "-o", str(tmp_path / "out"), "--pretrained", str(checkpoints["v2"]),
+        "--device", "cpu", "--num_tokens", "16", "--glb", "--ply", "--fov_x", "60"])
+    assert result.exit_code == 0, result.output
+    assert (tmp_path / "out" / "scene" / "mesh.glb").is_file()
+    assert (tmp_path / "out" / "scene" / "pointcloud.ply").is_file()
+
+
+def test_infer_cli_refuses_a_missing_card(checkpoints, tmp_path):
+    from click.testing import CliRunner
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _write_image(tmp_path / "scene.png", 56, 56, seed=3)
+    result = CliRunner().invoke(infer.command(), ["-i", str(tmp_path / "scene.png"),
+                                                  "--pretrained", str(checkpoints["v2"])])
+    assert result.exit_code == 2 and "no CUDA device" in result.output
+
+
+def test_cli_group_offers_the_ported_commands():
+    from click.testing import CliRunner
+
+    group = cli.command()
+    assert set(group.commands) == {"infer", "serve"}
+    result = CliRunner().invoke(group, ["--help"])
+    assert result.exit_code == 0 and "infer" in result.output and "serve" in result.output

@@ -1,6 +1,8 @@
-"""Kernels K1-K4 (with the flash backward K2b-dq/K2b-dkv) on the card against
-their plain versions, in fp32 and bf16, at small ragged shapes, and the tiny
-MoGe-2 decode and gradient on the card against the CPU. Needs a CUDA GPU and
+"""Kernels K1-K4 (with the flash backward K2b-dq/K2b-dkv and the grouped conv
+K3-grouped) on the card against their plain versions, in fp32 and bf16, at
+small ragged shapes, and the tiny MoGe-2 decode (sequential and batched
+heads), the tiny MoGe-1 forward and the MoGe-2 gradient on the card against
+the CPU. Needs a CUDA GPU and
 nvcc (the kernels have no CPU mode); skipped elsewhere. On a GPU host:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -89,6 +91,40 @@ def test_conv3x3(dev, dtype, shape, relu, use_res):
         assert (got - want).abs().max().item() <= K3_BF16_REL * want.abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,relu,use_res", [
+    ((3, 1, 7, 5, 24, 20), True, True), ((3, 2, 1, 1, 8, 12), False, False),
+    ((3, 2, 37, 53, 64, 64), True, False), ((2, 3, 9, 70, 130, 70), False, True)])
+def test_conv3x3_grouped(dev, dtype, shape, relu, use_res):
+    """K3-grouped: batch entry b uses weight group b // B0; counted apart from K3."""
+    g, b0, h, w, c, o = shape
+    gen = _gen(dev, 3 * sum(shape))
+    x = torch.randn(g * b0, h, w, c, device=dev, generator=gen).to(dtype)
+    k = (torch.randn(g, 3, 3, c, o, device=dev, generator=gen) * (9 * c) ** -0.5).to(dtype)
+    bias = torch.randn(g, o, device=dev, generator=gen)
+    res = torch.randn(g * b0, h, w, o, device=dev, generator=gen).to(dtype) if use_res else None
+    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES)
+    got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
+    assert (conv.LAUNCHES - before[0], conv.GROUPED_LAUNCHES - before[1]) == (0, 1)
+    want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL * want.abs().max().item())
+    else:
+        assert (got - want).abs().max().item() <= K3_BF16_REL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_up2_bilinear_grouped(dev, dtype):
+    gen = _gen(dev, 11)
+    x = torch.randn(6, 9, 7, 16, device=dev, generator=gen).to(dtype)
+    k = (torch.randn(3, 3, 3, 16, 5, device=dev, generator=gen) * 12 ** -1).to(dtype)
+    bias = torch.randn(3, 5, device=dev, generator=gen)
+    got = conv.conv3x3_up2_bilinear(x, k, bias).float()
+    want = conv.conv3x3_up2_bilinear(x.float().cpu(), k.float().cpu(), bias.cpu())
+    tol = (FP32_TOL if dtype == torch.float32 else K3_BF16_REL) * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.randn(4, 6, 5, 8, device=dev)
     with pytest.raises(ValueError):
@@ -99,6 +135,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         norm.layer_norm_fp32(torch.randn(3, 4096, device=dev), torch.ones(4096, device=dev),
                              torch.zeros(4096, device=dev))
+    with pytest.raises(ValueError):  # 4 batch entries, 3 weight groups
+        conv.conv3x3_replicate(x, torch.randn(3, 3, 3, 8, 4, device=dev), torch.zeros(3, 4, device=dev))
+    with pytest.raises(ValueError):  # a shared bias for grouped weights
+        conv.conv3x3_replicate(x, torch.randn(2, 3, 3, 8, 4, device=dev), torch.zeros(4, device=dev))
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -122,6 +162,45 @@ def test_tiny_decode_on_card_matches_cpu(dev, dtype, rtol):
     for key in want:
         a, b = got[key].float().cpu(), want[key]
         assert ((a - b).norm() / b.norm()).item() <= rtol, key
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_tiny_batched_heads_decode_on_card_matches_cpu(dev, dtype, rtol):
+    """Batched heads on the card (K3 for the neck, K3-grouped for the three
+    heads) against the sequential heads on the CPU, batch 2."""
+    from moge_tpu_torch.models.v2 import MoGeModel
+
+    gpu = MoGeModel(TINY_CONFIG, dev, torch.float32, batched_heads=True).init_random(seed=0)
+    cpu = MoGeModel(TINY_CONFIG, "cpu", torch.float32, batched_heads=False)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
+    image = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (2, 56, 112, 3)).astype(np.float32))
+    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES)
+    with torch.inference_mode():
+        got = gpu.module.decode(image.to(dev), 4, 8, 2.0, dtype)
+        want = cpu.module.decode(image, 4, 8, 2.0, torch.float32)
+    # neck: 2 convs per res block + 1 per resampler; heads: the same per head, grouped
+    assert (conv.LAUNCHES - before[0], conv.GROUPED_LAUNCHES - before[1]) == (2 * 3 + 4, 2 * 3 + 4)
+    for key in want:
+        a, b = got[key].float().cpu(), want[key]
+        assert ((a - b).norm() / b.norm()).item() <= rtol, key
+
+
+def test_tiny_moge1_on_card_matches_cpu(dev):
+    from moge_tpu_torch.models.v1 import MoGeModel
+
+    cfg = {"encoder": "dinov2_vitt14", "intermediate_layers": 4, "dim_proj": 32, "dim_upsample": [32, 16, 16],
+           "dim_times_res_block_hidden": 2, "num_res_blocks": 1, "remap_output": "exp",
+           "res_block_norm": "group_norm", "last_res_blocks": 1, "last_conv_channels": 32, "last_conv_size": 1}
+    gpu = MoGeModel(cfg, dev, torch.float32).init_random(seed=0)
+    cpu = MoGeModel(cfg, "cpu", torch.float32)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
+    image = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (1, 112, 140, 3)).astype(np.float32))
+    with torch.inference_mode():
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            got = gpu.module(image.to(dev), 64, dtype)
+            want = cpu.module(image, 64, torch.float32)
+            for key in want:
+                assert ((got[key].cpu() - want[key]).norm() / want[key].norm()).item() <= rtol, (key, dtype)
 
 
 def _rel(got, want):

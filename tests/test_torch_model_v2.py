@@ -132,7 +132,7 @@ def test_presets_match_the_jax_package():
     from moge_tpu.models.presets import MODEL_PRESETS as JAX_PRESETS
     from moge_tpu_torch.models.presets import MODEL_PRESETS
 
-    assert MODEL_PRESETS == {k: v for k, v in JAX_PRESETS.items() if v["version"] == "v2"}
+    assert MODEL_PRESETS == JAX_PRESETS
 
 
 def test_port_imports_no_jax():

@@ -24,3 +24,38 @@ TINY_CONFIG = {
     "remap_output": "exp",
     "num_tokens_range": [1200, 3600],
 }
+
+
+def make_points_perspective(module, z=0.3, tilt=0.5):
+    """Set a MoGe-2 module's weights (in place) so that its raw point map is
+    (u, v, z + tilt * u) over the view-plane UV: with the 'exp' remap, a
+    surface seen through focal 1 with shift 0 whose depth varies across the
+    image, so the focal/shift solve has one exact answer. The finest-level
+    path from the neck's UV input to the points head's output becomes linear
+    and the up2 convs feeding it are zeroed. Random weights give degenerate
+    point maps (as does a constant depth: only focal over shift is fixed)
+    whose solve turns 1e-7 changes of the raw maps (a batch's summation
+    order) into any focal; this one is well conditioned, so comparisons after
+    the solve test what they mean to."""
+    import torch
+
+    def eye_into(weight, n=2):
+        weight.zero_()
+        for i in range(n):
+            weight[i, i, 0, 0] = 1.0
+
+    with torch.no_grad():
+        neck_in = module.neck.input_blocks[-1]
+        neck_in.weight[:2] = 0.0
+        neck_in.weight[0, 0, 0, 0] = neck_in.weight[1, 1, 0, 0] = 1.0
+        neck_in.bias[:2] = 0.0
+        for stack in (module.neck, module.points_head):
+            stack.resamplers[-1][1].weight.zero_()
+            stack.resamplers[-1][1].bias.zero_()
+        eye_into(module.points_head.input_blocks[-1].weight)
+        module.points_head.input_blocks[-1].bias.zero_()
+        out = module.points_head.output_blocks[-1]
+        eye_into(out.weight)
+        out.weight[2, 0, 0, 0] = tilt
+        out.bias.copy_(torch.tensor([0.0, 0.0, z]))
+    return module
