@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, serving and training on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, serving, training and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -11,7 +11,16 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    K2's logsumexp), K3-grouped at the batched decoder heads' shapes (G=3,
    B0 = 1 and 8, bf16 and fp32, the grouped up2 form), then the flash
    backward K2b-dq/K2b-dkv (bf16 and fp32) and the dense align objective K4
-   at the v2 loss shapes;
+   at the v2 loss shapes; with each kernel's bound (the least time the card
+   could take, from the bytes it must move and its operations at the peak
+   rate of their type) and the time of one PyTorch call that computes the
+   same function, where there is one;
+3b. probes: the ported TPU probes T1 (seven softmax variants of a flash
+   forward, N = 3601 and a ragged 1201), T2 (the FP32-pipe ceiling loop,
+   both kinds) and T3-T6 (four layouts of K4's objective, at the
+   ``patch_16`` and ``global`` solve shapes) against their plain versions,
+   then the three probe tools' measurements at their default shapes (the
+   ``probes`` path, counted);
 4. inference at full width: ``moge-2-vitl-normal`` with random weights from
    a seed, bf16, four ``infer`` requests, launch counters per forward;
 5. inference parity: ``moge-2-vits-normal`` decode, bf16 with the kernels on
@@ -42,7 +51,9 @@ serving and training numbers, the card's name and power limit, and last
 summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
-``serve``, one step for ``train``); ``infer_launches`` is the count per
+``serve``, one step for ``train``, the three tools' measurements for
+``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
+reported case of phase 3; ``infer_launches`` is the count per
 ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
 beside it, it exits nonzero and prints no result.
 """
@@ -70,6 +81,10 @@ K3_REL = 1e-2
 # differs in summation order only
 K2B_REL = {"bfloat16": 3e-2, "float32": 1e-4}
 K4_REL = 2e-5  # fp32 sums of up to 6912 terms in another order (and fma), relative to max |F|
+# the probes T1-T6 are held to their tools' REL_TOL, relative to max |plain|
+PROBE_KERNELS = ("exp_flash_softmax", "exp_vpu_ceiling", "exp_dense_v1", "exp_dense_v1_unroll", "exp_dense_v2",
+                 "exp_dense_bf16")
+CLOCK_HZ = 1.98e9  # the card's maximum SM clock, read in main (FP32 and MUFU rates scale with it)
 TRAIN_CONFIG = ROOT / "configs" / "train" / "v2.json"
 TRAIN_TOKENS = (1369, 3600)
 TRAIN_STEPS = 3
@@ -115,6 +130,72 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(dtype=None, flops: float = 0.0, **work):
+    """(least ms, "bytes" or "operations") of a piece of work on the card
+    (``moge_tpu_torch.tools.roofline``): matrix flops at the bf16 tensor-core
+    rate for bf16, as FP32 FMAs outside the tensor cores for fp32."""
+    import torch
+
+    from moge_tpu_torch.tools import roofline
+
+    if flops:
+        work["tensor_flops" if dtype == torch.bfloat16 else "fp32_instr"] = \
+            flops if dtype == torch.bfloat16 else flops / 2
+    return roofline.bound_ms(CLOCK_HZ, **work)
+
+
+def library_layer_norm(x, s, b):
+    """F.layer_norm in the input's dtype: K1's library call."""
+    import torch.nn.functional as F
+
+    sb, bb = s.to(x.dtype), b.to(x.dtype)
+    return lambda: F.layer_norm(x, (x.shape[-1],), sb, bb, 1e-6)
+
+
+def _heads_first(t):
+    return t.transpose(1, 2).contiguous()
+
+
+def library_sdpa(q, k, v, kv_valid=None, dout=None):
+    """SDPA on the flash backend over the first ``kv_valid`` keys ((B, N, H,
+    D) inputs moved to (B, H, N, D) outside the timed call): the forward, or
+    with ``dout`` the backward (dq, dk and dv in one call)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    kv = k.shape[1] if kv_valid is None else kv_valid
+    qt, kt, vt = _heads_first(q), _heads_first(k[:, :kv]), _heads_first(v[:, :kv])
+    if dout is None:
+        def fwd():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                return F.scaled_dot_product_attention(qt, kt, vt)
+        return fwd
+    leaves = [t.requires_grad_() for t in (qt, kt, vt)]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        out = F.scaled_dot_product_attention(*leaves)
+    dt = _heads_first(dout)
+    return lambda: torch.autograd.grad(out, leaves, dt, retain_graph=True)
+
+
+def library_conv(x, kern, bias):
+    """F.conv2d, channels-last, in the input's dtype, on the replicate-padded
+    input (padded outside the timed call); a grouped (G, 3, 3, C, O) kernel
+    runs as groups=G with the batch groups moved to channels. The input ReLU
+    and the residual of K3 are not part of it."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, W, C = x.shape
+    G = kern.shape[0] if kern.dim() == 5 else 1
+    xc = x.reshape(G, B // G, H, W, C).permute(1, 0, 4, 2, 3).reshape(B // G, G * C, H, W)
+    xp = F.pad(xc.float(), (1, 1, 1, 1), mode="replicate").to(x.dtype).contiguous(memory_format=torch.channels_last)
+    w = kern.reshape(G, 3, 3, C, -1).permute(0, 4, 3, 1, 2).reshape(-1, C, 3, 3)
+    w = w.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    b = None if bias is None else bias.reshape(-1).to(x.dtype)
+    return lambda: F.conv2d(xp, w, b, groups=G)
+
+
 def phase_device():
     import torch
 
@@ -139,6 +220,15 @@ def phase_build():
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", text))
         log(f"[build] {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
             f"{spills} bytes of spill stores")
+
+
+def conv_bound(x, kern, res):
+    """K3's (and K3-grouped's) bound: 2 * 9 * C * O flops per output pixel
+    and group, x, the weights, the residual and the output moved once."""
+    B, H, W, C = x.shape
+    O = kern.shape[-1]
+    moved = (x.numel() + kern.numel() + B * H * W * O * (2 if res is not None else 1)) * x.element_size()
+    return bound(x.dtype, flops=2 * B * H * W * 9 * C * O, bytes_moved=moved)
 
 
 def phase_kernels():
@@ -168,10 +258,13 @@ def phase_kernels():
         tol = want.abs().max().item() * 2.0 ** -8
         ms = cuda_ms(lambda: norm.layer_norm_fp32(x, s, b))
         plain_ms = cuda_ms(lambda: norm.layer_norm_plain(x, s, b))
-        log(f"[K1] M={m} D={d}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        lib_ms = cuda_ms(library_layer_norm(x, s, b))
+        bnd = bound(bytes_moved=2 * m * d * x.element_size() + 2 * d * 4, fp32_instr=4 * m * d)
+        log(f"[K1] M={m} D={d}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.layer_norm {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
         if not err <= tol:
             raise AssertionError(f"K1 LayerNorm disagrees at M={m} D={d}: {err} > {tol}")
-        k1.append((err, ms, plain_ms))
+        k1.append((err, ms, plain_ms, lib_ms, bnd))
     results["layer_norm"] = k1
 
     # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor
@@ -185,14 +278,19 @@ def phase_kernels():
         lse_err = (got_lse - want_lse).abs().max().item()
         ms = cuda_ms(lambda: attention.flash_attention(q, k, v, kv_valid))
         plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, kv_valid))
-        log(f"[K2] B=1 H=16 N={n} kv_valid={kv_valid or n}: max_abs_err {err:.3e} (tol {K2_MAX_ABS}), "
+        lib_ms = cuda_ms(library_sdpa(q, k, v, kv_valid))
+        kv = kv_valid or n
+        bnd = bound(bf16, flops=4 * 16 * n * kv * 64, mufu=16 * n * kv,
+                    bytes_moved=2 * 16 * 64 * 2 * (n + kv) + 16 * n * 4)
+        log(f"[K2] B=1 H=16 N={n} kv_valid={kv}: max_abs_err {err:.3e} (tol {K2_MAX_ABS}), "
             f"lse max_abs_err {lse_err:.3e} (tol {K2_LSE_ABS}), out max {want.abs().max().item():.3f}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA flash {lib_ms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
         if not err <= K2_MAX_ABS:
             raise AssertionError(f"K2 flash attention disagrees at N={n}: {err} > {K2_MAX_ABS}")
         if not lse_err <= K2_LSE_ABS:
             raise AssertionError(f"K2 logsumexp disagrees at N={n}: {lse_err} > {K2_LSE_ABS}")
-        k2.append((err, ms, plain_ms))
+        k2.append((err, ms, plain_ms, lib_ms, bnd))
     results["flash_attention"] = k2
 
     # K3 conv: the decoder's shapes (ViT-L, 1369 tokens), ReLU/residual on and off
@@ -213,11 +311,14 @@ def phase_kernels():
         rel = err / want.abs().max().item()
         ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu))
         plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, kern, bias, res, relu))
+        lib_ms = cuda_ms(library_conv(x, kern, bias))
+        bnd = conv_bound(x, kern, res)
         log(f"[K3] {h}x{w} {c}->{o} relu={relu} residual={use_res}: max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"(tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
         if not rel <= K3_REL:
             raise AssertionError(f"K3 conv disagrees at {h}x{w} {c}->{o}: rel {rel} > {K3_REL}")
-        k3.append((err, ms, plain_ms))
+        k3.append((err, ms, plain_ms, lib_ms, bnd))
     results["conv3x3"] = k3
     results["conv3x3_grouped"] = grouped_cases(gen)
     torch.cuda.synchronize()
@@ -259,12 +360,15 @@ def grouped_cases(gen):
                 iters = 20 if dtype == torch.bfloat16 else 5
                 ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu), iters)
                 plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, kern, bias, res, relu), iters)
+                lib_ms = cuda_ms(library_conv(x, kern, bias), iters)
+                bnd = conv_bound(x, kern, res)
                 label = f"{'up2 ' if h == 'up2' else ''}{x.shape[1]}x{x.shape[2]} {c}->{kern.shape[-1]}"
                 log(f"[K3g] G=3 B0={b0} {label} {str(dtype).split('.')[-1]} relu={relu} residual={use_res}: "
-                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"F.conv2d(groups=3) {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
                 if not rel <= K3_REL:
                     raise AssertionError(f"K3-grouped disagrees at G=3 B0={b0} {label} {dtype}: rel {rel} > {K3_REL}")
-                cases.append((err, ms, plain_ms))
+                cases.append((err, ms, plain_ms, lib_ms, bnd))
                 del x, kern, bias, res, got, want
     torch.cuda.empty_cache()
     return cases
@@ -303,16 +407,25 @@ def phase_kernels_train():
             plain_dq = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_in[0], dout, retain_graph=True), 10)
             plain_dkv = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_in[1:], dout, retain_graph=True), 10)
             del plain_out, plain_in
+            # SDPA's flash backward (bf16 only) computes dq, dk and dv in one call
+            lib_ms = cuda_ms(library_sdpa(q, k, v, kv_valid, dout), 10) if dtype == torch.bfloat16 else None
+            io = 2 * n * 16 * 64 * qkv.element_size()  # one (B, N, H, 64) tensor
+            stats = 2 * 2 * 16 * n * 4                 # lse and delta
+            bnd_dq = bound(dtype, flops=6 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
+                           bytes_moved=5 * io + stats)
+            bnd_dkv = bound(dtype, flops=8 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
+                            bytes_moved=6 * io + stats)
             label = f"B=2 H=16 N={n} kv_valid={kv_valid} {str(dtype).split('.')[-1]}"
             log(f"[K2b] {label}: dq max_abs_err {err_dq:.3e}, dk/dv max_abs_err {err_dkv:.3e} (tol {tol:.3e}); "
-                f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms; dk/dv kernel {ms_dkv:.4f} ms, "
-                f"plain {plain_dkv:.4f} ms")
+                f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms, bound {bnd_dq[0]:.4f} ms ({bnd_dq[1]}); "
+                f"dk/dv kernel {ms_dkv:.4f} ms, plain {plain_dkv:.4f} ms, bound {bnd_dkv[0]:.4f} ms ({bnd_dkv[1]}); "
+                f"SDPA flash backward {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms")
             if not (err_dq <= tol and err_dkv <= tol):
                 raise AssertionError(f"K2b flash backward disagrees at {label}: {err_dq}, {err_dkv} > {tol}")
             if kv_valid < n and (dk[:, kv_valid:].any() or dv[:, kv_valid:].any()):
                 raise AssertionError(f"K2b: masked keys got nonzero dk/dv at {label}")
-            results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq))
-            results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv))
+            results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq, lib_ms, bnd_dq))
+            results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv, lib_ms, bnd_dkv))
             torch.cuda.empty_cache()
 
     # K4 at the v2 loss shapes (batch 2): rows bounded to ~2^32 pairs for the
@@ -328,15 +441,124 @@ def phase_kernels_train():
         plain_ms = cuda_ms(lambda: alignment.dense_objective_plain(A, wx, wy, 1.0), 5)
         A, wx, wy = torch.randn(3, full_rows, length, generator=gen, device=dev).unbind(0)
         full_ms = cuda_ms(lambda: alignment.dense_objective(A, wx, wy, 1.0), 5)
+        bnd = bound(bytes_moved=4 * rows * length * 4, fp32_instr=3 * rows * length ** 2)
         log(f"[K4] L={length} rows={rows}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; full rows={full_rows}: kernel {full_ms:.4f} ms "
-            f"({full_rows * length ** 2 / full_ms / 1e9:.3f} Tpair/s)")
+            f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); full rows={full_rows}: kernel "
+            f"{full_ms:.4f} ms ({full_rows * length ** 2 / full_ms / 1e9:.3f} Tpair/s)")
         if not err <= tol:
             raise AssertionError(f"K4 dense objective disagrees at L={length}: {err} > {tol}")
-        results["dense_align"].append((err, ms, plain_ms))
+        results["dense_align"].append((err, ms, plain_ms, None, bnd))
         del A, wx, wy
     torch.cuda.synchronize()
     return results
+
+
+def phase_probes(card: str):
+    """The ported TPU probes against their plain versions on the card (T1 at
+    N = 3601 and 1201, T2 both kinds, T3-T6 at the three shapes of
+    ``exp_dense_pallas.SHAPES``), then the ``probes`` path: each probe tool's
+    measurement at its default shapes, with the counters set to 0 just before
+    and read just after. Returns (per-kernel cases, (launch counts, 1 run),
+    the tools' rows)."""
+    import torch
+
+    from moge_tpu_torch.tools import exp_dense_pallas as dense
+    from moge_tpu_torch.tools import exp_flash_softmax as fs
+    from moge_tpu_torch.tools import exp_vpu_ceiling as vpu
+    from moge_tpu_torch.tools import roofline
+
+    dev = torch.device(DEVICE)
+    results = {name: [] for name in PROBE_KERNELS}
+
+    # T1: every variant at the ViT-L token count and at a ragged one (1201 -> 1280 rows)
+    for n in (3601, 1201):
+        q, k, v, v_ext, bias = fs.make_inputs(n, dev)
+        n_pad = q.shape[1]
+        for variant in fs.VARIANTS:
+            vin = v_ext if variant.startswith("mxusum") else v
+            got = fs.flash_softmax_variant(variant, q, k, vin, bias, n).float()
+            want = fs.flash_softmax_variant_plain(variant, q, k, vin, bias, n).float()
+            err = (got - want).abs().max().item()
+            tol = fs.REL_TOL[variant] * want.abs().max().item()
+            ms = cuda_ms(lambda: fs.flash_softmax_variant(variant, q, k, vin, bias, n))
+            plain_ms = cuda_ms(lambda: fs.flash_softmax_variant_plain(variant, q, k, vin, bias, n), 3, 1)
+            lib_ms = None
+            if variant == "base":  # SDPA over the n real keys, unscaled logits as the probe has them
+                kr, vr = k[None, :, :n].contiguous(), v[None, :, :n].contiguous()
+                lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q[None], kr, vr, scale=1.0))
+            bnd = fs.bounds(q.shape[0], n_pad, n, variant, CLOCK_HZ)
+            log(f"[T1] {variant} bh=16 N={n} (padded {n_pad}): max_abs_err {err:.3e} (tol {tol:.3e}), "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{'' if lib_ms is None else f', SDPA {lib_ms:.4f} ms'}, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if variant == "noexp" and (got.any() or want.any()):
+                raise AssertionError(f"T1 noexp at N={n}: the output is not exactly 0")
+            if not err <= tol:
+                raise AssertionError(f"T1 {variant} disagrees at N={n}: {err} > {tol}")
+            results["exp_flash_softmax"].append((err, ms, plain_ms, lib_ms, bnd))
+        del q, k, v, v_ext, bias, got, want
+        torch.cuda.empty_cache()
+
+    # T2: the full 256 x 512 x 2000 loop; time per launch from 200 back-to-back launches
+    x, y = vpu.inputs(dev)
+    for kind, per in vpu.INSTRUCTIONS.items():
+        got = vpu.vpu_ceiling(x, y, kind)
+        want = vpu.vpu_ceiling_plain(x, y, kind)
+        err = (got - want).abs().max().item()
+        tol = vpu.REL_TOL * want.abs().max().item()
+        ms = roofline.min_ms(lambda: vpu.vpu_ceiling(x, y, kind, launches=200), dev) / 200
+        plain_ms = cuda_ms(lambda: vpu.vpu_ceiling_plain(x, y, kind), 2, 1)
+        elems = x.numel() * vpu.ITERS
+        bnd = bound(bytes_moved=3 * x.numel() * 4, fp32_instr=per * elems)
+        log(f"[T2] {kind} 256x512 x {vpu.ITERS}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms "
+            f"({elems / ms / 1e9:.3f} Telem/s), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not err <= tol:
+            raise AssertionError(f"T2 {kind} disagrees: {err} > {tol}")
+        results["exp_vpu_ceiling"].append((err, ms, plain_ms, None, bnd))
+
+    # T3-T6 at the shapes the probes path gives them: the global and local loss's solves
+    for shape, (R, L) in dense.SHAPES.items():
+        _, _, _, A, wx, wy = dense.make_problem(R, L, dev)
+        wants = {plain: plain(A, wx, wy, 1.0) for plain in set(dense.PLAINS.values())}
+        for variant, fn in dense.FUNCTIONS.items():
+            plain = dense.PLAINS[variant]
+            got, want = fn(A, wx, wy, 1.0), wants[plain]
+            err = (got - want).abs().max().item()
+            tol = dense.REL_TOL * want.abs().max().item()
+            ms = cuda_ms(lambda: fn(A, wx, wy, 1.0), 5)
+            plain_ms = cuda_ms(lambda: plain(A, wx, wy, 1.0), 2, 1)
+            bnd = dense.pairs_bound(R, L, variant, CLOCK_HZ)
+            log(f"[T3-T6] {variant} {shape} R={R} L={L}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms "
+                f"({R * L * L / ms / 1e9:.3f} Tpair/s), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if not err <= tol:
+                raise AssertionError(f"dense_objective_{variant} disagrees at {shape}: {err} > {tol}")
+            results[f"exp_dense_{variant}"].append((err, ms, plain_ms, None, bnd))
+        del A, wx, wy, wants, got, want
+        torch.cuda.empty_cache()
+
+    # the probes path: the three tools' measurements at their default shapes
+    reset_counts()
+    tables = {"exp_flash_softmax": fs.measure(dev, clock_hz=CLOCK_HZ),
+              "exp_vpu_ceiling": vpu.measure(dev, clock_hz=CLOCK_HZ),
+              "exp_dense_pallas": dense.measure(dev, clock_hz=CLOCK_HZ)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t1 = tables["exp_flash_softmax"]
+    for r in t1["rows"]:
+        diff = "" if r["max_diff_vs_base"] is None else f", max|diff vs base| {r['max_diff_vs_base']:.3e}"
+        log(f"[probes] exp_flash_softmax {r['variant']}: {r['ms']:.4f} ms per layer (N={t1['n']}, depth "
+            f"{t1['depth']}, least of {t1['reps']}), bound {r['bound_ms']:.4f} ms{diff} ({card})")
+    for r in tables["exp_vpu_ceiling"]:
+        log(f"[probes] exp_vpu_ceiling {r['kind']}: {r['ms']:.4f} ms per launch, {r['telem_per_s']:.3f} Telem/s, "
+            f"{r['tinstr_per_s']:.2f} T FP32 instr/s ({r['instructions_per']} per elem-iter), bound "
+            f"{r['bound_ms']:.4f} ms ({card})")
+    for r in tables["exp_dense_pallas"]:
+        log(f"[probes] exp_dense_pallas {r['shape']} R={r['R']} L={r['L']} {r['what']}: {r['ms']:.4f} ms, "
+            f"{r['tpair_per_s']:.3f} Tpair/s, bound {r['bound_ms']:.4f} ms ({card})")
+    log(f"[probes] launches {counts}")
+    idle = [name for name in PROBE_KERNELS + ("dense_align",) if counts[name] == 0]
+    if idle:
+        raise AssertionError(f"probes path: kernels {idle} were never launched")
+    return results, (counts, 1), tables
 
 
 def loss_solve_shapes(loss_table, batch: int):
@@ -363,7 +585,8 @@ def _vit_launches(backbone: str, layers) -> dict:
     depth = VIT_ARCHS[backbone].depth
     n_take = layers if isinstance(layers, int) else len(layers)
     return {"layer_norm": 2 * depth + n_take, "flash_attention": depth, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "conv3x3": 0, "conv3x3_grouped": 0, "dense_align": 0}
+            "flash_attention_dkv": 0, "conv3x3": 0, "conv3x3_grouped": 0, "dense_align": 0,
+            **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_launches(config, batched_heads: bool = False) -> dict:
@@ -418,17 +641,23 @@ def expected_train_launches(config, loss_config) -> dict:
 
 def reset_counts():
     from moge_tpu_torch.ops import alignment, attention, conv, norm
+    from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling
 
     norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
     conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = 0
+    exp_flash_softmax.LAUNCHES = exp_vpu_ceiling.LAUNCHES = 0
+    exp_dense_pallas.LAUNCHES.update(dict.fromkeys(exp_dense_pallas.LAUNCHES, 0))
 
 
 def read_counts() -> dict:
     from moge_tpu_torch.ops import alignment, attention, conv, norm
+    from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling
 
     return {"layer_norm": norm.LAUNCHES, "flash_attention": attention.LAUNCHES,
             "flash_attention_dq": attention.DQ_LAUNCHES, "flash_attention_dkv": attention.DKV_LAUNCHES,
-            "conv3x3": conv.LAUNCHES, "conv3x3_grouped": conv.GROUPED_LAUNCHES, "dense_align": alignment.LAUNCHES}
+            "conv3x3": conv.LAUNCHES, "conv3x3_grouped": conv.GROUPED_LAUNCHES, "dense_align": alignment.LAUNCHES,
+            "exp_flash_softmax": exp_flash_softmax.LAUNCHES, "exp_vpu_ceiling": exp_vpu_ceiling.LAUNCHES,
+            **{f"exp_dense_{k}": v for k, v in exp_dense_pallas.LAUNCHES.items()}}
 
 
 def phase_slice(card: str):
@@ -933,14 +1162,23 @@ KERNELS = [
     ("conv3x3", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:132"),
     ("conv3x3_grouped", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:304"),
     ("dense_align", "moge_tpu_torch/csrc/dense_align.cu", "moge_tpu/ops/alignment.py:90"),
+    ("exp_flash_softmax", "moge_tpu_torch/csrc/exp_flash_softmax.cu", "tools/exp_flash_softmax.py:27"),
+    ("exp_vpu_ceiling", "moge_tpu_torch/csrc/exp_vpu_ceiling.cu", "tools/exp_vpu_ceiling.py:33"),
+    ("exp_dense_v1", "moge_tpu_torch/csrc/exp_dense.cu", "tools/exp_dense_pallas.py:37"),
+    ("exp_dense_v1_unroll", "moge_tpu_torch/csrc/exp_dense.cu", "tools/exp_dense_pallas.py:86"),
+    ("exp_dense_v2", "moge_tpu_torch/csrc/exp_dense.cu", "tools/exp_dense_pallas.py:132"),
+    ("exp_dense_bf16", "moge_tpu_torch/csrc/exp_dense.cu", "tools/exp_dense_pallas.py:182"),
 ]
 # which phase-3 case carries the reported time: the 1369-token shape (bf16;
-# for K3-grouped 296^2 64->64 at B0 = 1), and for K4 the global loss's L = 6912
+# for K3-grouped 296^2 64->64 at B0 = 1), for K4 the global loss's L = 6912;
+# for the probes T1 base at N = 3601, T2 align, T3-T6 the global shape
 REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-               "conv3x3": 3, "conv3x3_grouped": 8, "dense_align": 0}
+               "conv3x3": 3, "conv3x3_grouped": 8, "dense_align": 0, "exp_flash_softmax": 0, "exp_vpu_ceiling": 0,
+               "exp_dense_v1": 0, "exp_dense_v1_unroll": 0, "exp_dense_v2": 0, "exp_dense_bf16": 0}
 
 
 def main() -> int:
+    global CLOCK_HZ
     import torch
 
     card = phase_device()
@@ -948,11 +1186,19 @@ def main() -> int:
         raise RuntimeError(f"moge_tpu_torch/ not found beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
     sys.path.append(str(ROOT / "tests"))  # torch_tiny_config.make_points_perspective
+    from moge_tpu_torch.tools import roofline
+
+    CLOCK_HZ = roofline.sm_clock_hz()
+    log(f"[device] max SM clock {CLOCK_HZ / 1e9:.3f} GHz: FP32 "
+        f"{roofline.SMS * roofline.FP32_LANES_PER_SM * CLOCK_HZ / 1e12:.2f} T instr/s, MUFU "
+        f"{roofline.SMS * roofline.MUFU_PER_SM * CLOCK_HZ / 1e12:.3f} T/s")
     phase_build()
     kernel_results = {**phase_kernels(), **phase_kernels_train()}
     # each path is driven with the counters set to 0 just before each of its
     # runs and read just after; every run of a path launches the same counts
     launches = {}  # path -> (launches per run, runs)
+    probe_results, launches["probes"], probe_tables = phase_probes(card)
+    kernel_results.update(probe_results)
     seq, launches["infer"], latencies = phase_slice(card)
     phase_parity()
     bat, launches["batched_heads"], batched_ms = phase_batched(card, seq)
@@ -967,14 +1213,16 @@ def main() -> int:
     kernels = []
     for name, source, replaces in KERNELS:
         cases = kernel_results[name]
-        _, ms, plain_ms = cases[REPORT_CASE[name]]
+        _, ms, plain_ms, library_ms, (bound_ms, bound_by) = cases[REPORT_CASE[name]]
         by_path = {path: {"per_run": per_run[name], "runs": runs} for path, (per_run, runs) in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(p["per_run"] * p["runs"] for p in by_path.values()),
                         "infer_launches": by_path["infer"]["per_run"], "launches_by_path": by_path,
-                        "max_abs_err": max(c[0] for c in cases), "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": max(c[0] for c in cases), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
-                      "serve": serve_stats, "moge1_infer_ms": moge1_ms, "train_steps": train_steps}))
+                      "serve": serve_stats, "moge1_infer_ms": moge1_ms, "train_steps": train_steps,
+                      "probes": probe_tables}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -168,7 +168,7 @@ class MoGeModel:
 
     version = "v1"
 
-    def __init__(self, config: Dict[str, Any], device: Union[str, torch.device] = "cpu",
+    def __init__(self, config: Dict[str, Any], device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16):
         self.config = normalize_config(config)
         self.device = torch.device(device)
@@ -177,7 +177,7 @@ class MoGeModel:
             self.module = MoGeV1(**self.config).eval()
 
     @classmethod
-    def from_pretrained(cls, path, device: Union[str, torch.device] = "cpu", dtype: torch.dtype = torch.bfloat16,
+    def from_pretrained(cls, path, device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.bfloat16,
                         model_kwargs: Optional[Dict[str, Any]] = None) -> "MoGeModel":
         """Load a reference-format MoGe-1 checkpoint ``{'model_config', 'model'}``."""
         from .io import load_checkpoint

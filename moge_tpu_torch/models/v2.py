@@ -195,7 +195,7 @@ class MoGeModel:
     _CONFIG_KEYS = ("encoder", "neck", "points_head", "mask_head", "normal_head",
                     "scale_head", "remap_output", "num_tokens_range")
 
-    def __init__(self, config: Dict[str, Any], device: Union[str, torch.device] = "cpu",
+    def __init__(self, config: Dict[str, Any], device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16, batched_heads: Optional[bool] = None):
         self.config = {k: v for k, v in config.items() if k in self._CONFIG_KEYS}
         self.device = torch.device(device)
@@ -204,7 +204,7 @@ class MoGeModel:
             self.module = MoGeV2(**self.config, batched_heads=batched_heads).eval()
 
     @classmethod
-    def from_pretrained(cls, path, device: Union[str, torch.device] = "cpu", dtype: torch.dtype = torch.bfloat16,
+    def from_pretrained(cls, path, device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.bfloat16,
                         model_kwargs: Optional[Dict[str, Any]] = None) -> "MoGeModel":
         """Load a reference-format checkpoint ``{'model_config', 'model'}``."""
         from .io import load_checkpoint

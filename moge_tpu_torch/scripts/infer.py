@@ -1,8 +1,8 @@
 """Inference CLI (port of moge_tpu/scripts/infer.py): a file or a folder of
 images in, per image the maps (depth.exr, points.exr, mask.png, colorized
 depth/normal, fov.json) and/or a GLB mesh and a PLY point cloud out. The
-host-side writers are the JAX package's numpy-only ``moge_tpu.utils``
-modules, imported inside ``main`` with cv2 and click."""
+host-side writers are the port's ``moge_tpu_torch.utils``; cv2 and click are
+imported inside ``command``."""
 
 from __future__ import annotations
 
@@ -44,12 +44,11 @@ def command():
               use_fp16, resize_to, resolution_level, num_tokens, threshold, save_maps_, save_glb_, save_ply_):
         import cv2
 
-        from moge_tpu.utils.geometry_numpy import depth_map_edge_numpy, intrinsics_to_fov_numpy, uv_map_numpy
-        from moge_tpu.utils.io import write_exr
-        from moge_tpu.utils.mesh import image_mesh_from_map, save_glb, save_ply
-        from moge_tpu.utils.vis import colorize_depth, colorize_normal
-
         from ..models import import_model_class_by_version
+        from ..utils.geometry_numpy import depth_map_edge_numpy, intrinsics_to_fov_numpy, uv_map_numpy
+        from ..utils.io import write_exr
+        from ..utils.mesh import image_mesh_from_map, save_glb, save_ply
+        from ..utils.vis import colorize_depth, colorize_normal
 
         device = torch.device(device_name)
         if device.type == "cuda" and not torch.cuda.is_available():

@@ -231,8 +231,8 @@ def _encode_png16(arr: np.ndarray) -> bytes:
 
 
 def _response_payload(result: Dict[str, np.ndarray], maps, fmt: str):
-    from moge_tpu.utils import io as mio
-    from moge_tpu.utils.geometry_numpy import intrinsics_to_fov_numpy
+    from ..utils import io as mio
+    from ..utils.geometry_numpy import intrinsics_to_fov_numpy
 
     if fmt == "npz":
         buf = io.BytesIO()

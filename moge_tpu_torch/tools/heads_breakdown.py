@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import collections
 import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -29,6 +28,7 @@ from ..models.presets import get_preset
 from ..models.v2 import MoGeModel, base_token_grid
 from ..ops import _build
 from ..ops.resize import resize_2d
+from . import roofline
 
 RAW_RTOL = 3e-2  # relative L2 of each raw map, batched vs sequential heads (bf16 sums in another order)
 
@@ -53,8 +53,7 @@ def main(argv=None) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = roofline.card_label()
     _build.build_all()
     config = get_preset("moge-2-vitl-normal")["config"]
     seq = MoGeModel(config, "cuda", torch.bfloat16, batched_heads=False).init_random(seed=0)

@@ -1,0 +1,97 @@
+"""The H100's published peaks, the least time a piece of work can take on
+it, and the timing and labelling helpers the probe tools share.
+
+Peaks (NVIDIA's data sheet, H100 SXM, dense, at the full 700 W): 3.35 TB/s
+of HBM, 989 TFLOP/s of bf16 on the tensor cores. The rates outside the
+tensor cores scale with the SM clock: 132 SMs x 128 FP32 lanes execute one
+FP32 instruction per lane per clock (an FFMA counts 2 flops: 67 TFLOP/s at
+1.98 GHz), and 16 MUFU lanes per SM evaluate one ``ex2`` per clock.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+from typing import Callable, Dict, Tuple
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+SMS = 132
+FP32_LANES_PER_SM = 128
+MUFU_PER_SM = 16
+DEFAULT_SM_CLOCK_HZ = 1.98e9  # H100 SXM's maximum SM clock
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock as ``nvidia-smi`` reads it (Hz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def default_clock_hz(device: torch.device) -> float:
+    """The clock the bounds are taken at: the card's, or the H100 SXM's maximum off the card."""
+    return sm_clock_hz() if device.type == "cuda" else DEFAULT_SM_CLOCK_HZ
+
+
+def card_label() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.splitlines()[0].strip()
+
+
+def device_label(device: torch.device) -> str:
+    """What every printed result names: the card and its power limit, or the CPU."""
+    return card_label() if device.type == "cuda" else "cpu (plain versions; no device metric)"
+
+
+def bound_ms(clock_hz: float, bytes_moved: float = 0.0, tensor_flops: float = 0.0, fp32_instr: float = 0.0,
+             mufu: float = 0.0) -> Tuple[float, str]:
+    """The least time (ms) of a piece of work and what sets it: the bytes it
+    must move over the HBM rate, or its operations over the peak rate of
+    their type (the larger of the operation times)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(tensor_flops / BF16_TENSOR_FLOPS, fp32_instr / (SMS * FP32_LANES_PER_SM * clock_hz),
+                mufu / (SMS * MUFU_PER_SM * clock_hz))
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def min_ms(fn: Callable[[], object], device: torch.device, calls: int = 1, reps: int = 5,
+           warmup: int = 1) -> float:
+    """Least over ``reps`` of the mean time (ms) of ``calls`` back-to-back
+    calls of ``fn``: CUDA events on the card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms / calls)
+    return best
+
+
+def interleaved_ms(runs: Dict[str, Callable[[], object]], device: torch.device, rounds: int, calls: int = 1,
+                   reps: int = 1) -> Dict[str, float]:
+    """``min_ms`` of each of ``runs``, the runs taken in turns for
+    ``rounds`` rounds (so drift of the card falls on all of them), least
+    over the rounds; each run is warmed up once, in the first round."""
+    best = {key: float("inf") for key in runs}
+    for r in range(rounds):
+        for key, fn in runs.items():
+            best[key] = min(best[key], min_ms(fn, device, calls, reps, warmup=1 if r == 0 else 0))
+    return best

@@ -1,0 +1,44 @@
+"""Depth and normal colorization (reference moge/utils/vis.py, Spectral
+colormap). Copies of the JAX package's ``moge_tpu/utils/vis.py`` functions."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+__all__ = ["colorize_depth", "colorize_normal"]
+
+
+def _nanquantile_range(x: np.ndarray, lo: float, hi: float) -> Tuple[float, float]:
+    """Quantile range that is quiet on all-NaN input (fully masked maps) and
+    never returns a zero span (constant maps render mid-colormap, not NaN)."""
+    if not np.isfinite(x).any():
+        return 0.0, 1.0
+    vmin, vmax = np.nanquantile(x, lo), np.nanquantile(x, hi)
+    if vmax - vmin < 1e-12:
+        vmin, vmax = vmin - 0.5, vmax + 0.5
+    return vmin, vmax
+
+
+def colorize_depth(depth: np.ndarray, mask: Optional[np.ndarray] = None, normalize: bool = True,
+                   cmap: str = "Spectral") -> np.ndarray:
+    import matplotlib
+
+    if mask is None:
+        depth = np.where(depth > 0, depth, np.nan)
+    else:
+        depth = np.where((depth > 0) & mask, depth, np.nan)
+    disp = 1 / depth
+    if normalize:
+        min_disp, max_disp = _nanquantile_range(disp, 0.001, 0.99)
+        disp = (disp - min_disp) / (max_disp - min_disp)
+    colored = np.nan_to_num(matplotlib.colormaps[cmap](1.0 - disp)[..., :3], 0)
+    return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))
+
+
+def colorize_normal(normal: np.ndarray, mask: Optional[np.ndarray] = None) -> np.ndarray:
+    if mask is not None:
+        normal = np.where(mask[..., None], normal, 0)
+    normal = normal * [0.5, -0.5, -0.5] + 0.5
+    return (normal.clip(0, 1) * 255).astype(np.uint8)

@@ -2,7 +2,8 @@
 K3-grouped) on the card against their plain versions, in fp32 and bf16, at
 small ragged shapes, and the tiny MoGe-2 decode (sequential and batched
 heads), the tiny MoGe-1 forward and the MoGe-2 gradient on the card against
-the CPU. Needs a CUDA GPU and
+the CPU, and the ported TPU probes T1-T6 against their plain versions. Needs
+a CUDA GPU and
 nvcc (the kernels have no CPU mode); skipped elsewhere. On a GPU host:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -276,3 +277,77 @@ def test_dense_objective_rejects_what_the_kernel_does_not_take(dev):
         alignment.dense_objective(a.double(), a.double(), a.double(), 1.0)
     with pytest.raises(ValueError):
         alignment.dense_objective(a.t(), a.t(), a.t(), 1.0)
+
+
+# the ported TPU probes T1-T6 (moge_tpu_torch/tools) against their plain
+# versions, each to its tool's REL_TOL relative to max |plain|
+
+
+@pytest.mark.parametrize("n,n_pad,bh", [(200, 256, 2), (130, 192, 3), (64, 64, 1)])
+@pytest.mark.parametrize("variant", ["base", "nobias", "bf16sm", "noexp", "nomax", "mxusum", "mxusum_nomax"])
+def test_flash_softmax_variant(dev, variant, n, n_pad, bh):
+    from moge_tpu_torch.tools import exp_flash_softmax as fs
+
+    q, k, v, v_ext, bias = fs.make_inputs(n, dev, bh, n_pad, seed=n)
+    vin = v_ext if variant.startswith("mxusum") else v
+    before = fs.LAUNCHES
+    got = fs.flash_softmax_variant(variant, q, k, vin, bias, n).float()
+    assert fs.LAUNCHES == before + 1
+    want = fs.flash_softmax_variant_plain(variant, q, k, vin, bias, n).float()
+    if variant == "noexp":
+        assert not got.any() and not want.any()
+    assert (got - want).abs().max().item() <= fs.REL_TOL[variant] * want.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["align", "fma"])
+@pytest.mark.parametrize("shape,iters", [((256, 512), 2000), ((3, 37), 7), ((1, 1), 0)])
+def test_vpu_ceiling(dev, kind, shape, iters):
+    from moge_tpu_torch.tools import exp_vpu_ceiling as vpu
+
+    x, y = vpu.inputs(dev, shape)
+    before = vpu.LAUNCHES
+    got = vpu.vpu_ceiling(x, y, kind, iters, launches=3)
+    assert vpu.LAUNCHES == before + 3
+    want = vpu.vpu_ceiling_plain(x, y, kind, iters)
+    assert (got - want).abs().max().item() <= vpu.REL_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("variant", ["v1", "v1_unroll", "v2", "bf16"])
+@pytest.mark.parametrize("r,length", [(5, 40), (3, 2049), (7, 300), (1, 1), (9, 4096)])
+def test_dense_layouts(dev, variant, r, length):
+    from moge_tpu_torch.tools import exp_dense_pallas as dense
+
+    _, _, _, A, wx, wy = dense.make_problem(r, length, dev, seed=length)
+    want = dense.PLAINS[variant](A, wx, wy, 0.7)
+    for tile in dense.VARIANTS[variant][2]:
+        before = dense.LAUNCHES[variant]
+        got = dense.FUNCTIONS[variant](A, wx, wy, 0.7, tile)
+        assert dense.LAUNCHES[variant] == before + 1
+        # relative to max |F|, or to max |wy| where a candidate's own term cancels (L = 1)
+        scale = max(want.abs().max().item(), wy.abs().max().item())
+        assert (got - want).abs().max().item() <= dense.REL_TOL * scale, tile
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from moge_tpu_torch.tools import exp_dense_pallas as dense
+    from moge_tpu_torch.tools import exp_flash_softmax as fs
+    from moge_tpu_torch.tools import exp_vpu_ceiling as vpu
+
+    q, k, v, v_ext, bias = fs.make_inputs(100, dev, 1, 128)
+    with pytest.raises(ValueError):  # a 64-wide V for the validity-column variant
+        fs.flash_softmax_variant("mxusum", q, k, v, bias, 100)
+    with pytest.raises(ValueError):  # fp32 q
+        fs.flash_softmax_variant("base", q.float(), k, v, bias, 100)
+    with pytest.raises(ValueError):  # N not a multiple of 64
+        fs.flash_softmax_variant("base", q[:, :100].contiguous(), k[:, :100].contiguous(),
+                                 v[:, :100].contiguous(), bias[:, :100].contiguous(), 100)
+    x, y = vpu.inputs(dev, (4, 8))
+    with pytest.raises(ValueError):
+        vpu.vpu_ceiling(x.t(), y, "align")
+    with pytest.raises(ValueError):
+        vpu.vpu_ceiling(x.double(), y.double(), "fma")
+    _, _, _, A, wx, wy = dense.make_problem(3, 50, dev)
+    with pytest.raises(ValueError):
+        dense.dense_objective_v1(A.t(), wx, wy, 1.0)
+    with pytest.raises(ValueError):  # a tile the library was not built with
+        dense.dense_objective_v2(A, wx, wy, 1.0, tile=16)

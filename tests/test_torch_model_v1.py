@@ -13,9 +13,9 @@ import jax.numpy as jnp
 
 from moge_tpu.models.v1 import MoGeModel as JaxMoGeModel
 from moge_tpu_torch.models import import_model_class_by_version
-from moge_tpu_torch.models.convert import v1_state_dict_from_jax_params
 from moge_tpu_torch.models.io import load_checkpoint
 from moge_tpu_torch.models.v1 import MoGeModel, normalize_config
+from torch_tiny_config import v1_state_dict_from_jax_params
 
 torch.set_num_threads(1)
 

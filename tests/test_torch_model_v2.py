@@ -14,10 +14,9 @@ import jax
 import jax.numpy as jnp
 
 from moge_tpu.models.v2 import MoGeModel as JaxMoGeModel, apply_epilogue as jax_apply_epilogue
-from moge_tpu_torch.models.convert import state_dict_from_jax_params
 from moge_tpu_torch.models.v2 import MoGeModel, base_token_grid
 from moge_tpu_torch.ops import attention, conv, norm
-from torch_tiny_config import TINY_CONFIG
+from torch_tiny_config import TINY_CONFIG, state_dict_from_jax_params
 
 torch.set_num_threads(1)
 
@@ -136,7 +135,7 @@ def test_presets_match_the_jax_package():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, moge_tpu_torch, moge_tpu_torch.models.v2, moge_tpu_torch.models.convert; "
+    code = ("import sys, moge_tpu_torch, moge_tpu_torch.models.v2, moge_tpu_torch.models.v1; "
             "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -14,12 +14,11 @@ import jax.numpy as jnp
 
 from moge_tpu.models import multihead as jax_multihead
 from moge_tpu.models.v2 import MoGeModel as JaxMoGeModel
-from moge_tpu_torch.models.convert import state_dict_from_jax_params
 from moge_tpu_torch.models import multihead
 from moge_tpu_torch.models.multihead import heads_batchable
 from moge_tpu_torch.models.v2 import MoGeV2
 from moge_tpu_torch.ops import conv
-from torch_tiny_config import TINY_CONFIG
+from torch_tiny_config import TINY_CONFIG, state_dict_from_jax_params
 
 torch.set_num_threads(1)
 

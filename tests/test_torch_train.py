@@ -22,11 +22,10 @@ import optax
 from moge_tpu.models.v2 import MoGeV2 as JaxMoGeV2
 from moge_tpu.train import step as jstep
 from moge_tpu.train import utils as jutils
-from moge_tpu_torch.models.convert import state_dict_from_jax_params
 from moge_tpu_torch.models.v2 import MoGeV2
 from moge_tpu_torch.train import step as tstep
 from moge_tpu_torch.train import utils as tutils
-from torch_tiny_config import TINY_CONFIG
+from torch_tiny_config import TINY_CONFIG, state_dict_from_jax_params
 
 torch.set_num_threads(1)
 

@@ -1,7 +1,8 @@
-"""Tiny MoGe-2 config shared by the port's tests (no JAX import, so GPU hosts
-without JAX can use it): the full structure (encoder, neck, three heads,
-scale MLP) on the ``dinov2_vitt14`` arch, as in
-``__graft_entry__.dryrun_multichip``."""
+"""Tiny MoGe-2 config shared by the port's tests (no JAX import at module
+level, so GPU hosts without JAX can use it): the full structure (encoder,
+neck, three heads, scale MLP) on the ``dinov2_vitt14`` arch, as in
+``__graft_entry__.dryrun_multichip``; and the weight bridge from the JAX
+package's parameter trees to the port's state dicts."""
 
 _HEAD = {
     "dim_in": [64, 32, 16, 16, 16], "dim_res_blocks": [64, 32, 16, 16, 16], "num_res_blocks": [0, 1, 1, 1, 0],
@@ -59,3 +60,27 @@ def make_points_perspective(module, z=0.3, tilt=0.5):
         out.weight[2, 0, 0, 0] = tilt
         out.bias.copy_(torch.tensor([0.0, 0.0, z]))
     return module
+
+
+def _to_torch(sd):
+    import numpy as np
+    import torch
+
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def state_dict_from_jax_params(config, params):
+    """JAX MoGe-2 params (a nested dict of arrays, either DINOv2 block layout)
+    -> the torch state dict the port loads strictly, written by the JAX
+    package's own exporter, so that both packages compute with one set of
+    weights."""
+    from moge_tpu.models.convert import export_moge2
+
+    return _to_torch(export_moge2(config, params)["model"])
+
+
+def v1_state_dict_from_jax_params(config, params):
+    """JAX MoGe-1 params -> the port's torch state dict (``export_moge1``)."""
+    from moge_tpu.models.convert import export_moge1
+
+    return _to_torch(export_moge1(config, params)["model"])
