@@ -7,8 +7,10 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 1. device: require CUDA, print the card's name and power limit, disable TF32;
 2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes plus ragged edges, with errors and median times: K1-K3 (and
-   K2's logsumexp), K3-grouped at the batched decoder heads' shapes (G=3,
+   paths' shapes plus ragged edges, with errors and median times: K1, K2
+   (and its logsumexp), K3 at every conv shape of a ViT-L ``infer`` (each
+   launch's variant checked, times by CUDA events and by device time, and
+   K3 ms per infer against F.conv2d by device time), K3-grouped at the batched decoder heads' shapes (G=3,
    B0 = 1 and 8, bf16 and fp32, the grouped up2 form), then the flash
    backward K2b-dq/K2b-dkv (bf16 and fp32) and the dense align objective K4
    at the v2 loss shapes; with each kernel's bound (the least time the card
@@ -45,6 +47,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
     (kernels) against the CPU (plain versions) from the same weights, batch
     and random draws: loss, every alignment solve and the gradients.
 
+On every counted run of the paths below, each K3 and K3-grouped launch must
+have taken a pipelined wgmma variant (``conv.VARIANT_LAUNCHES``).
+
 Prints a JSON line with the kernels' numbers, the inference, batched,
 serving and training numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is its count
@@ -53,8 +58,11 @@ gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
 ``serve``, one step for ``train``, the three tools' measurements for
 ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
-reported case of phase 3; ``infer_launches`` is the count per
-``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
+reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
+medians by CUDA events around each call for every kernel, and K3 and
+K3-grouped add ``device_ms``, ``plain_device_ms`` and
+``library_device_ms``, the same calls' device time from torch.profiler;
+``infer_launches`` is the count per ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
 beside it, it exits nonzero and prints no result.
 """
 
@@ -293,36 +301,115 @@ def phase_kernels():
         k2.append((err, ms, plain_ms, lib_ms, bnd))
     results["flash_attention"] = k2
 
-    # K3 conv: the decoder's shapes (ViT-L, 1369 tokens), ReLU/residual on and off
-    k3 = []
-    cases = [(74, 74, 256, 256, True, True), (74, 74, 256, 256, False, False),
-             (148, 148, 128, 128, True, True), (296, 296, 64, 64, True, True),
-             (296, 296, 64, 64, False, False), (296, 296, 64, 128, False, False),
-             (296, 296, 64, 12, False, False), (296, 296, 64, 4, False, False),
-             (37, 53, 64, 64, True, True), (37, 53, 24, 20, True, False)]
-    for h, w, c, o, relu, use_res in cases:
-        x = randn(1, h, w, c)
-        kern = randn(3, 3, c, o, scale=(9 * c) ** -0.5)
-        bias = torch.randn(o, generator=gen, device=dev) * 0.1
-        res = randn(1, h, w, o) if use_res else None
-        got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
-        want = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu))
-        plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, kern, bias, res, relu))
-        lib_ms = cuda_ms(library_conv(x, kern, bias))
-        bnd = conv_bound(x, kern, res)
-        log(f"[K3] {h}x{w} {c}->{o} relu={relu} residual={use_res}: max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-        if not rel <= K3_REL:
-            raise AssertionError(f"K3 conv disagrees at {h}x{w} {c}->{o}: rel {rel} > {K3_REL}")
-        k3.append((err, ms, plain_ms, lib_ms, bnd))
-    results["conv3x3"] = k3
+    results["conv3x3"] = conv_cases(gen)
     results["conv3x3_grouped"] = grouped_cases(gen)
     torch.cuda.synchronize()
     return results
+
+
+# K3 at the main path's shapes: moge-2-vitl-normal, 1369 tokens, batch 1 (a
+# 37^2 token grid). Per ConvStack level (74^2, 148^2, 296^2) the res blocks'
+# convs with the input ReLU, with ReLU and residual, and the plain ones; then
+# the up2 convs at 296^2 over parity-expanded weights: the neck's (4 x 32),
+# the points and normal heads' (4 x 3, the 1x1 folded in) and the mask
+# head's (4 x 1). (h, c, o, relu, residual, up2, launches per infer.)
+K3_MAIN = [(h, c, c, relu, res, False, n) for h, c in ((74, 256), (148, 128), (296, 64))
+           for relu, res, n in ((True, False, 5), (True, True, 5), (False, False, 4))] + \
+          [(296, 64, 4 * 32, False, False, True, 1), (296, 64, 4 * 3, False, False, True, 2),
+           (296, 64, 4 * 1, False, False, True, 1)]
+K3_RAGGED = [(37, 53, 64, 64, True, True), (37, 53, 24, 20, True, False)]
+
+
+def conv_times(x, kern, bias, res, relu, iters: int = 20):
+    """Times of K3 (or K3-grouped), its plain version and F.conv2d on the
+    same inputs, two ways: CUDA events around each call (``cuda_ms``, as for
+    every other kernel: the kernels line's ``ms``/``plain_ms``/``library_ms``)
+    and device time from torch.profiler (``roofline.device_ms``: the kernels'
+    own durations, without the host's time to reach the launch), returned as
+    the line's ``device_ms``/``plain_device_ms``/``library_device_ms``."""
+    from moge_tpu_torch.ops import conv
+    from moge_tpu_torch.tools.roofline import device_ms
+
+    calls = {"": lambda: conv.conv3x3_replicate(x, kern, bias, res, relu),
+             "plain_": lambda: conv.conv3x3_plain(x, kern, bias, res, relu), "library_": library_conv(x, kern, bias)}
+    events = [cuda_ms(fn, iters) for fn in calls.values()]
+    return (*events, {f"{k}device_ms": device_ms(fn, iters) for k, fn in calls.items()})
+
+
+def conv_times_text(ms, plain_ms, lib_ms, dev_ms, library="F.conv2d"):
+    return (f"ms by events / device time: kernel {ms:.4f} / {dev_ms['device_ms']:.4f}, plain {plain_ms:.4f} / "
+            f"{dev_ms['plain_device_ms']:.4f}, {library} {lib_ms:.4f} / {dev_ms['library_device_ms']:.4f}")
+
+
+def conv_cases(gen):
+    """K3 (bf16) against its plain version at every main-path shape, then at
+    ragged ones; times (``conv_times``) of the kernel, the plain version and
+    F.conv2d; then K3 ms per infer by device time, kernel against library:
+    each shape's launches per infer x its time, and their sums."""
+    import torch
+
+    from moge_tpu_torch.ops import conv
+
+    dev = torch.device(DEVICE)
+    bf16 = torch.bfloat16
+    cases, per_infer = [], {}
+    for h, w, c, o, relu, use_res, up2, n in [(h, h, *rest) for h, *rest in K3_MAIN] + \
+                                             [(*r, False, 0) for r in K3_RAGGED]:
+        x = torch.randn(1, h, w, c, generator=gen, device=dev).to(bf16)
+        kern = torch.randn(3, 3, c, o // 4 if up2 else o, generator=gen, device=dev) * (9 * c) ** -0.5
+        bias = torch.randn(kern.shape[-1], generator=gen, device=dev) * 0.1
+        if up2:  # the operands conv3x3_up2_bilinear hands K3
+            kern, bias = conv.up2_conv3_expanded(kern, bias, bf16)
+        kern = kern.to(bf16).contiguous()
+        res = torch.randn(1, h, w, o, generator=gen, device=dev).to(bf16) if use_res else None
+        before = dict(conv.VARIANT_LAUNCHES)
+        got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
+        variant = [k for k, v in conv.VARIANT_LAUNCHES.items() if v != before[k]]
+        want = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        ms, plain_ms, lib_ms, dev_ms = conv_times(x, kern, bias, res, relu)
+        bnd = conv_bound(x, kern, res)
+        label = f"{'up2 ' if up2 else ''}{h}x{w} {c}->{o} relu={relu} residual={use_res}"
+        log(f"[K3] {label} ({variant[0] if len(variant) == 1 else variant}, "
+            f"{conv._tile_config(1, 1, h, w, c, o, conv._sms(dev))}): max_abs_err {err:.3e} rel {rel:.3e} "
+            f"(tol {K3_REL}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms)}; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not rel <= K3_REL:
+            raise AssertionError(f"K3 conv disagrees at {label}: rel {rel} > {K3_REL}")
+        if variant not in [[v] for v in conv.PIPELINED]:
+            raise AssertionError(f"K3 at {label} took {variant}, not one pipelined wgmma variant")
+        cases.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
+        if n:
+            row = per_infer.setdefault(f"{'up2 ' if up2 else ''}{h}^2 {c}->{o}", [0, 0.0, 0.0])
+            row[0] += n
+            row[1] += n * dev_ms["device_ms"]
+            row[2] += n * dev_ms["library_device_ms"]
+        del x, kern, bias, res, got, want
+    for shape, (n, k_ms, l_ms) in per_infer.items():
+        log(f"[K3 per infer] {shape}: {n} launches, device time: kernel {k_ms:.4f} ms, F.conv2d {l_ms:.4f} ms")
+    total = [sum(r[i] for r in per_infer.values()) for i in range(3)]
+    from moge_tpu_torch.models.presets import get_preset
+
+    want = expected_launches(get_preset("moge-2-vitl-normal")["config"])["conv3x3"]
+    if total[0] != want:
+        raise AssertionError(f"K3_MAIN lists {total[0]} launches per infer, the config implies {want}")
+    log(f"[K3 per infer] moge-2-vitl-normal, 1369 tokens, batch 1: {total[0]} launches, kernel "
+        f"{total[1]:.4f} ms vs F.conv2d {total[2]:.4f} ms (device time)")
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_conv_variants(label: str, counts: dict) -> dict:
+    """Every K3 and K3-grouped launch of a counted run took a pipelined wgmma
+    variant (``conv.VARIANT_LAUNCHES``, set to 0 with the other counts)."""
+    from moge_tpu_torch.ops import conv
+
+    variants = dict(conv.VARIANT_LAUNCHES)
+    pipelined = sum(variants[k] for k in conv.PIPELINED)
+    if pipelined != counts["conv3x3"] + counts["conv3x3_grouped"] or pipelined != sum(variants.values()):
+        raise AssertionError(f"{label}: K3 launches by variant {variants}, counts {counts['conv3x3']} + "
+                             f"{counts['conv3x3_grouped']}: not all on the pipelined wgmma path")
+    return variants
 
 
 def grouped_cases(gen):
@@ -358,17 +445,16 @@ def grouped_cases(gen):
                 err = (got - want).abs().max().item()
                 rel = err / want.abs().max().item()
                 iters = 20 if dtype == torch.bfloat16 else 5
-                ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu), iters)
-                plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, kern, bias, res, relu), iters)
-                lib_ms = cuda_ms(library_conv(x, kern, bias), iters)
+                ms, plain_ms, lib_ms, dev_ms = conv_times(x, kern, bias, res, relu, iters)
                 bnd = conv_bound(x, kern, res)
                 label = f"{'up2 ' if h == 'up2' else ''}{x.shape[1]}x{x.shape[2]} {c}->{kern.shape[-1]}"
                 log(f"[K3g] G=3 B0={b0} {label} {str(dtype).split('.')[-1]} relu={relu} residual={use_res}: "
-                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {K3_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"F.conv2d(groups=3) {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {K3_REL}), "
+                    f"{conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'F.conv2d(groups=3)')}; "
+                    f"bound {bnd[0]:.4f} ms ({bnd[1]})")
                 if not rel <= K3_REL:
                     raise AssertionError(f"K3-grouped disagrees at G=3 B0={b0} {label} {dtype}: rel {rel} > {K3_REL}")
-                cases.append((err, ms, plain_ms, lib_ms, bnd))
+                cases.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
                 del x, kern, bias, res, got, want
     torch.cuda.empty_cache()
     return cases
@@ -645,6 +731,7 @@ def reset_counts():
 
     norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
     conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = 0
+    conv.VARIANT_LAUNCHES.update(dict.fromkeys(conv.VARIANT_LAUNCHES, 0))
     exp_flash_softmax.LAUNCHES = exp_vpu_ceiling.LAUNCHES = 0
     exp_dense_pallas.LAUNCHES.update(dict.fromkeys(exp_dense_pallas.LAUNCHES, 0))
 
@@ -692,6 +779,7 @@ def phase_slice(card: str):
         counts_seen.append(counts)
         if counts != expect:
             raise AssertionError(f"{label}: kernel launches {counts}, expected {expect} per forward")
+        variants = check_conv_variants(label, counts)
         shapes = {k: tuple(v.shape) for k, v in out.items()}
         want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w), "normal": (h, w, 3)}
         if shapes != want:
@@ -717,7 +805,7 @@ def phase_slice(card: str):
             times.append((time.perf_counter() - t0) * 1e3)
         latencies[label] = statistics.median(times)
         log(f"[slice] {label}: mask {mask.float().mean().item():.3f} of pixels, "
-            f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, "
+            f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, K3 variants {variants}, "
             f"warm median {latencies[label]:.2f} ms ({card})")
     return model, (counts_seen[0], len(counts_seen)), latencies
 
@@ -832,6 +920,7 @@ def phase_batched(card: str, seq):
                 counts = read_counts()
                 if counts != expect[batched]:
                     raise AssertionError(f"{label} batched={batched}: launches {counts}, expected {expect[batched]}")
+                check_conv_variants(f"{label} batched={batched}", counts)
                 ms[batched] = wall_ms(lambda: model.infer(images, num_tokens=num_tokens), 3)
             errs = [compare_answers(f"{label} image {i}", {k: v[i] for k, v in outs[True].items()},
                                     {k: v[i] for k, v in outs[False].items()}) for i in range(batch)]
@@ -896,6 +985,7 @@ def phase_serve(card: str, model):
     want_counts = {k: v * batches for k, v in per_forward.items()}
     if counts != want_counts:
         raise AssertionError(f"serve: launches {counts} over {batches} batches, expected {want_counts}")
+    check_conv_variants("serve", counts)
     errs = []
     for i, (image, fov) in enumerate(zip(images, fovs)):
         want = model.infer(torch.from_numpy(image), num_tokens=SERVE_TOKENS, fov_x=fov)
@@ -938,6 +1028,7 @@ def phase_moge1(card: str):
         counts_seen.append(counts)
         if counts != expect:
             raise AssertionError(f"moge-vitl {label}: kernel launches {counts}, expected {expect} per forward")
+        check_conv_variants(f"moge-vitl {label}", counts)
         shapes = {k: tuple(v.shape) for k, v in out.items()}
         want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w)}
         if shapes != want or out["mask"].dtype != torch.bool:
@@ -1053,6 +1144,7 @@ def phase_train(card: str):
                 raise AssertionError(f"non-finite gradients (update skipped) at {num_tokens} tokens, step {i}")
             if counts != expect:
                 raise AssertionError(f"train step launches {counts}, expected {expect}")
+            check_conv_variants(f"train {num_tokens} tokens step {i}", counts)
             steps.append({"num_tokens": num_tokens, "step": i, "ms": wall_ms, "peak_gib": peak_gib, "loss": total})
     if state.step != len(TRAIN_TOKENS) * TRAIN_STEPS or tx.count != state.step:
         raise AssertionError(f"step count {state.step}, optimizer updates {tx.count}")
@@ -1170,10 +1262,11 @@ KERNELS = [
     ("exp_dense_bf16", "moge_tpu_torch/csrc/exp_dense.cu", "tools/exp_dense_pallas.py:182"),
 ]
 # which phase-3 case carries the reported time: the 1369-token shape (bf16;
-# for K3-grouped 296^2 64->64 at B0 = 1), for K4 the global loss's L = 6912;
+# for K3 and K3-grouped 296^2 64->64 with ReLU and residual, at B0 = 1 for
+# K3-grouped), for K4 the global loss's L = 6912;
 # for the probes T1 base at N = 3601, T2 align, T3-T6 the global shape
 REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-               "conv3x3": 3, "conv3x3_grouped": 8, "dense_align": 0, "exp_flash_softmax": 0, "exp_vpu_ceiling": 0,
+               "conv3x3": 7, "conv3x3_grouped": 8, "dense_align": 0, "exp_flash_softmax": 0, "exp_vpu_ceiling": 0,
                "exp_dense_v1": 0, "exp_dense_v1_unroll": 0, "exp_dense_v2": 0, "exp_dense_bf16": 0}
 
 
@@ -1213,13 +1306,13 @@ def main() -> int:
     kernels = []
     for name, source, replaces in KERNELS:
         cases = kernel_results[name]
-        _, ms, plain_ms, library_ms, (bound_ms, bound_by) = cases[REPORT_CASE[name]]
+        _, ms, plain_ms, library_ms, (bound_ms, bound_by), *device = cases[REPORT_CASE[name]]
         by_path = {path: {"per_run": per_run[name], "runs": runs} for path, (per_run, runs) in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(p["per_run"] * p["runs"] for p in by_path.values()),
                         "infer_launches": by_path["infer"]["per_run"], "launches_by_path": by_path,
                         "max_abs_err": max(c[0] for c in cases), "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **dict(*device)})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
                       "serve": serve_stats, "moge1_infer_ms": moge1_ms, "train_steps": train_steps,
                       "probes": probe_tables}))

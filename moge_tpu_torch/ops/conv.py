@@ -21,13 +21,23 @@ CUDA tensors run kernel K3-grouped (the same source, the group on the
 grid), counted in ``GROUPED_LAUNCHES``; its backward is again the plain
 version's VJP (JAX's grouped VJP is the vmapped XLA formulation).
 
+For bf16 the kernel is a pipelined implicit GEMM on ``wgmma``; its output
+tile and copy width are chosen per launch by ``_tile_config``, and each
+launch is also counted under its variant in ``VARIANT_LAUNCHES``:
+``wgmma_tma_cp16`` (weights by TMA, input by 16-byte cp.async),
+``wgmma_cp8`` / ``wgmma_cp4`` (both by 8- or 4-byte cp.async): the
+pipelined variants, ``PIPELINED``, which every main-path shape takes;
+``wgmma_generic`` (2-byte loads through registers, for an odd C or O or
+misaligned pointers) and ``fp32`` (the scalar fp32 kernel).
+
 Weights use the JAX layout (3, 3, C, O); activations are NHWC.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,14 +46,71 @@ from . import _build
 from ._vjp import plain_vjp
 
 __all__ = ["conv3x3_replicate", "conv3x3_plain", "conv3x3_up2_bilinear", "up2_conv3_weights",
-           "up2_conv3_expanded", "depth_to_space2", "LAUNCHES", "GROUPED_LAUNCHES"]
+           "up2_conv3_expanded", "depth_to_space2", "LAUNCHES", "GROUPED_LAUNCHES", "VARIANT_LAUNCHES",
+           "PIPELINED"]
 
 LAUNCHES = 0  # K3 launches made by conv3x3_replicate (never by the plain version)
 GROUPED_LAUNCHES = 0  # K3-grouped launches (5-dim kernels), counted apart
+PIPELINED = ("wgmma_tma_cp16", "wgmma_cp8", "wgmma_cp4")  # the bf16 variants that copy asynchronously
+# every K3 and K3-grouped launch, counted once more under the variant it took
+VARIANT_LAUNCHES = dict.fromkeys(PIPELINED + ("wgmma_generic", "fp32"), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_GROUPED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_GROUPED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+N_TILES = (16, 32, 64, 128)  # wgmma widths the bf16 kernel is built for
+
+
+class ConvTile(NamedTuple):
+    """The bf16 kernel's output tile, an 8 x (bm / 8) patch of pixels by bn
+    channels, and the bytes of each copy into shared memory (16: the weights
+    by TMA and the input by cp.async; 8, 4: both by cp.async; 2: the generic
+    loader)."""
+    bm: int
+    bn: int
+    copy: int
+
+    @property
+    def variant(self) -> str:
+        return {16: "wgmma_tma_cp16", 8: "wgmma_cp8", 4: "wgmma_cp4", 2: "wgmma_generic"}[self.copy]
+
+    def blocks(self, G: int, B0: int, H: int, W: int, O: int) -> int:
+        """Blocks of the launch: G x B0 x patches x N tiles."""
+        return G * B0 * -(-H // 8) * -(-W // (self.bm // 8)) * -(-O // self.bn)
+
+
+@functools.lru_cache(maxsize=1024)
+def _tile_config(G: int, B0: int, H: int, W: int, C: int, O: int, sms: int, align: int = 16) -> ConvTile:
+    """Tile of the bf16 kernel for G groups of B0 x H x W pixels, C -> O
+    channels, on a card of ``sms`` SMs, pointers aligned to ``align`` bytes.
+    N: the narrowest width that holds O (O = 12 runs 16 wide), 128 above it
+    (more N tiles on the grid). Copy: the widest of 16, 8, 4 bytes that C,
+    O and the pointers allow, else 2 (generic). M: 128 pixels (8 x 16) where
+    that grid still has at least four blocks per SM (each block then reads
+    the weights for twice the pixels), else 64 (8 x 8), so that 74^2 at
+    batch 1 (256 -> 256) runs 200 blocks on an H100's 132 SMs."""
+    bn = next((n for n in N_TILES if n >= O), N_TILES[-1])
+    copy = next((v for v in (16, 8, 4) if C % (v // 2) == 0 and O % (v // 2) == 0 and align % v == 0), 2)
+    wide = ConvTile(128, bn, copy)
+    if copy == 16 and bn >= 64 and wide.blocks(G, B0, H, W, O) >= 4 * sms:
+        return wide
+    return ConvTile(64, bn, copy)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every tensor's address."""
+    align = 16
+    for t in tensors:
+        if t is not None:
+            while t.data_ptr() % align:
+                align //= 2
+    return align
 
 
 def _groups(x: torch.Tensor, kernel: torch.Tensor) -> int:
@@ -107,15 +174,21 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
         fn, dims = lib.moge_conv3x3, (B, H, W, C, O)
         fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
+    if x.dtype == torch.bfloat16:
+        tile = _tile_config(G or 1, B // (G or 1), H, W, C, O, _sms(x.device), _alignment(x, kernel, residual, y))
+        variant = tile.variant
+    else:
+        tile, variant = (0, 0, 0), "fp32"
     with torch.cuda.device(x.device):  # launch on the tensors' card
         rc = fn(x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
                 None if residual is None else residual.data_ptr(), y.data_ptr(),
-                *dims, int(input_relu), _DTYPES[x.dtype], _build.stream_ptr(x))
+                *dims, int(input_relu), _DTYPES[x.dtype], *tile, _build.stream_ptr(x))
     _build.check(lib, rc, "conv3x3_replicate")
     if G:
         GROUPED_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    VARIANT_LAUNCHES[variant] += 1
     return y
 
 

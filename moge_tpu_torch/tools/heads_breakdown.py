@@ -10,7 +10,8 @@ widest head. For each token count and batch size it holds the batched
 paths' raw maps against the sequential ones, prints host-clock medians of
 ``infer`` with the paths run in turns, then a torch.profiler table per
 path: kernel time per ``infer``, busy share (kernel time over the profiled
-wall time), launches per ``infer`` and the largest kernels.
+wall time), launches per ``infer``, the time of K3 (with K3-grouped) and of
+K2, and the largest kernels.
 """
 
 from __future__ import annotations
@@ -105,8 +106,11 @@ def main(argv=None) -> None:
                         ms[e.name] += e.device_time_total / 1e3 / 3
                         count[e.name] += 1
                     busy = sum(ms.values())
+                    k3 = sum(v for k, v in ms.items() if "conv3x3" in k)
+                    k2 = sum(v for k, v in ms.items() if "flash_fwd" in k)
                     print(f"[profile] {label} {name}: wall {wall:.2f} ms/infer (profiled), kernel time {busy:.2f} "
-                          f"ms/infer, busy {busy / wall:.3f}, {len(kernels) // 3} launches/infer ({card})")
+                          f"ms/infer, busy {busy / wall:.3f}, {len(kernels) // 3} launches/infer, K3 (+grouped) "
+                          f"{k3:.2f} ms, K2 {k2:.2f} ms ({card})")
                     for k, v in ms.most_common(8):
                         print(f"    {v:8.3f} ms x{count[k] // 3:4d}  {k[:100]}")
     finally:

@@ -85,6 +85,36 @@ def min_ms(fn: Callable[[], object], device: torch.device, calls: int = 1, reps:
     return best
 
 
+def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3, windows: int = 3) -> float:
+    """Device time (ms) per call of ``fn`` on the card: the summed durations
+    of the kernels it launches, from torch.profiler (CUPTI) traces of
+    ``iters`` calls, median over ``windows`` traces. Unlike CUDA events
+    around a call, this leaves out the host's time to reach the launch,
+    which for a small kernel behind a Python wrapper can exceed the
+    kernel's own. A trace that recorded no kernel is taken again (up to
+    twice as many traces); if none did, it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(2 * windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            per_call.append(total_us / 1e3 / iters)
+        if len(per_call) == windows:
+            break
+    if not per_call:
+        raise RuntimeError(f"torch.profiler recorded no kernel in {2 * windows} traces of {iters} calls")
+    return sorted(per_call)[len(per_call) // 2]
+
+
 def interleaved_ms(runs: Dict[str, Callable[[], object]], device: torch.device, rounds: int, calls: int = 1,
                    reps: int = 1) -> Dict[str, float]:
     """``min_ms`` of each of ``runs``, the runs taken in turns for

@@ -1,6 +1,7 @@
 """Kernels K1-K4 (with the flash backward K2b-dq/K2b-dkv and the grouped conv
 K3-grouped) on the card against their plain versions, in fp32 and bf16, at
-small ragged shapes, and the tiny MoGe-2 decode (sequential and batched
+small ragged shapes and at the main path's K3 shapes (one case per copy
+variant, counted), and the tiny MoGe-2 decode (sequential and batched
 heads), the tiny MoGe-1 forward and the MoGe-2 gradient on the card against
 the CPU, and the ported TPU probes T1-T6 against their plain versions. Needs
 a CUDA GPU and
@@ -112,6 +113,91 @@ def test_conv3x3_grouped(dev, dtype, shape, relu, use_res):
         torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL * want.abs().max().item())
     else:
         assert (got - want).abs().max().item() <= K3_BF16_REL * want.abs().max().item()
+
+
+def _check_conv(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL * want.abs().max().item())
+    else:
+        assert (got - want).abs().max().item() <= K3_BF16_REL * want.abs().max().item()
+
+
+def _variant_deltas(before):
+    return {k: v - before[k] for k, v in conv.VARIANT_LAUNCHES.items() if v != before[k]}
+
+
+# K3 at the main path's shapes (moge-2-vitl-normal, 1369 tokens, batch 1):
+# each ConvStack level's res-block convs (ReLU in; ReLU in + residual) and
+# its plain convs, and the up2 convs of the neck (4 parities x 32) and the
+# heads (the 1x1 folded in: 4 x 3 points/normal, 4 x 1 mask)
+MAIN_K3 = [(h, c, o, relu, res, False) for h, c, o in ((74, 256, 256), (148, 128, 128), (296, 64, 64))
+           for relu, res in ((True, False), (True, True), (False, False))] + \
+          [(296, 64, 32 * 4, False, False, True), (296, 64, 3 * 4, False, False, True),
+           (296, 64, 1 * 4, False, False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,o,relu,use_res,up2", MAIN_K3)
+def test_conv3x3_main_path_shapes(dev, dtype, h, c, o, relu, use_res, up2):
+    """Within tolerance of the plain version, one launch counted under one
+    variant: a pipelined wgmma variant for bf16. The up2 forms run at their
+    input's resolution over parity-expanded weights (4 x the channels)."""
+    g = _gen(dev, h * c + o)
+    x = torch.randn(1, h, h, c, device=dev, generator=g).to(dtype)
+    bias = torch.randn(o // 4 if up2 else o, device=dev, generator=g) * 0.1
+    k = torch.randn(3, 3, c, o // 4 if up2 else o, device=dev, generator=g) * (9 * c) ** -0.5
+    if up2:  # the operands conv3x3_up2_bilinear hands K3
+        k, bias = conv.up2_conv3_expanded(k, bias, dtype)
+    k = k.to(dtype).contiguous()
+    res = torch.randn(1, h, h, o, device=dev, generator=g).to(dtype) if use_res else None
+    before = dict(conv.VARIANT_LAUNCHES)
+    got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
+    want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
+    _check_conv(got, want, dtype)
+    deltas = _variant_deltas(before)
+    assert len(deltas) == 1 and list(deltas.values()) == [1]
+    assert next(iter(deltas)) in (("fp32",) if dtype == torch.float32 else conv.PIPELINED)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b0", [1, 2])
+@pytest.mark.parametrize("h,c,o,relu,use_res,up2", [(74, 256, 256, True, True, False),
+                                                    (296, 64, 3 * 4, False, False, True)])
+def test_conv3x3_grouped_main_path_shapes(dev, dtype, b0, h, c, o, relu, use_res, up2):
+    """K3-grouped, G = 3 heads: the 74^2 level and the heads' up2 form."""
+    gen = _gen(dev, 3 * h + c + o + b0)
+    x = torch.randn(3 * b0, h, h, c, device=dev, generator=gen).to(dtype)
+    bias = torch.randn(3, o // 4 if up2 else o, device=dev, generator=gen) * 0.1
+    k = torch.randn(3, 3, 3, c, o // 4 if up2 else o, device=dev, generator=gen) * (9 * c) ** -0.5
+    if up2:
+        k, bias = conv.up2_conv3_expanded(k, bias, dtype)
+    k = k.to(dtype).contiguous()
+    res = torch.randn(3 * b0, h, h, o, device=dev, generator=gen).to(dtype) if use_res else None
+    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES, dict(conv.VARIANT_LAUNCHES))
+    got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
+    assert (conv.LAUNCHES - before[0], conv.GROUPED_LAUNCHES - before[1]) == (0, 1)
+    want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
+    _check_conv(got, want, dtype)
+    assert next(iter(_variant_deltas(before[2]))) in (("fp32",) if dtype == torch.float32 else conv.PIPELINED)
+
+
+@pytest.mark.parametrize("c,o,offset,dtype,variant", [
+    (64, 64, 0, torch.bfloat16, "wgmma_tma_cp16"), (24, 20, 0, torch.bfloat16, "wgmma_cp8"),
+    (130, 70, 0, torch.bfloat16, "wgmma_cp4"), (7, 9, 0, torch.bfloat16, "wgmma_generic"),
+    (64, 64, 1, torch.bfloat16, "wgmma_generic"), (24, 20, 0, torch.float32, "fp32")])
+def test_conv3x3_variants(dev, c, o, offset, dtype, variant):
+    """One launch of each copy-width / loader variant, counted under it and
+    nowhere else; ``offset`` shifts the input by one element, so its address
+    is only 2-byte aligned and the generic loader takes it."""
+    g = _gen(dev, c * o + offset)
+    x = torch.randn(2 * 9 * 13 * c + offset, device=dev, generator=g).to(dtype)[offset:].view(2, 9, 13, c)
+    k = (torch.randn(3, 3, c, o, device=dev, generator=g) * (9 * c) ** -0.5).to(dtype)
+    bias = torch.randn(o, device=dev, generator=g)
+    res = torch.randn(2, 9, 13, o, device=dev, generator=g).to(dtype)
+    before = dict(conv.VARIANT_LAUNCHES)
+    got = conv.conv3x3_replicate(x, k, bias, res, True).float()
+    assert _variant_deltas(before) == {variant: 1}
+    _check_conv(got, conv.conv3x3_plain(x.float(), k.float(), bias, res.float(), True), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
