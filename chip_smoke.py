@@ -8,7 +8,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes plus ragged edges, with errors and median times: K1, K2
-   (and its logsumexp), K3 at every conv shape of a ViT-L ``infer`` (each
+   (and its logsumexp; B = 1 and 8 at the ViT token counts, times by CUDA
+   events and by device time, then kv_valid at the bf16 kernel's key-tile
+   edges), K3 at every conv shape of a ViT-L ``infer`` (each
    launch's variant checked, times by CUDA events and by device time, and
    K3 ms per infer against F.conv2d by device time), K3-grouped at the batched decoder heads' shapes (G=3,
    B0 = 1 and 8, bf16 and fp32, the grouped up2 form), then the flash
@@ -18,7 +20,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    rate of their type) and the time of one PyTorch call that computes the
    same function, where there is one;
 3b. probes: the ported TPU probes T1 (seven softmax variants of a flash
-   forward, N = 3601 and a ragged 1201), T2 (the FP32-pipe ceiling loop,
+   forward, N = 3601 and a ragged 1201, and 1216 rows, not a multiple of
+   the kernel's key tile; ``base`` at 3601 also by device time beside
+   SDPA's), T2 (the FP32-pipe ceiling loop,
    both kinds) and T3-T6 (four layouts of K4's objective, at the
    ``patch_16`` and ``global`` solve shapes) against their plain versions,
    then the three probe tools' measurements at their default shapes (the
@@ -35,9 +39,11 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    model, 32 requests from 8 client threads (half with ``fov_x``), every
    answer against its image's own batch-1 ``infer``; requests/s, mean
    batch, p50/p90 latency, launch counters per batch;
-8. MoGe-1: ``moge-vitl`` bf16 at full width, three ``infer`` requests with
-   launch counters per forward, then a ViT-S MoGe-1 (same head) forward,
-   bf16 on the card against fp32 on the CPU;
+8. MoGe-1: ``moge-vitl`` bf16 at full width with a point map of known
+   perspective in its points head, three ``infer`` requests with launch
+   counters per forward, each request's focal, shift and depth held to the
+   injected ones and to a CPU solve of the card's raw points; then a ViT-S
+   MoGe-1 (same head) forward, bf16 on the card against fp32 on the CPU;
 9. training at full width: ``configs/train/v2.json`` (model, optimizer, LR
    schedule, label type A losses), random weights from a seed, bf16 compute
    with fp32 parameters, batch 2 at 512x512, three ``make_train_step`` steps
@@ -48,7 +54,8 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
     and random draws: loss, every alignment solve and the gradients.
 
 On every counted run of the paths below, each K3 and K3-grouped launch must
-have taken a pipelined wgmma variant (``conv.VARIANT_LAUNCHES``).
+have taken a pipelined wgmma variant (``conv.VARIANT_LAUNCHES``) and each K2
+launch the wgmma kernel (``attention.VARIANT_LAUNCHES``).
 
 Prints a JSON line with the kernels' numbers, the inference, batched,
 serving and training numbers, the card's name and power limit, and last
@@ -59,15 +66,18 @@ forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
 ``serve``, one step for ``train``, the three tools' measurements for
 ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
 reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
-medians by CUDA events around each call for every kernel, and K3 and
-K3-grouped add ``device_ms``, ``plain_device_ms`` and
+medians by CUDA events around each call for every kernel, and K2, K3,
+K3-grouped and T1 add ``device_ms``, ``plain_device_ms`` and
 ``library_device_ms``, the same calls' device time from torch.profiler;
+``variants_by_path`` (K2, K3, K3-grouped) gives each path's launches per run
+by kernel variant;
 ``infer_launches`` is the count per ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
 beside it, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -114,6 +124,14 @@ BATCHED_TOKENS = (1369, 3600)
 BATCHED_SIZES = (1, 8)
 MASK_AGREE = 0.99  # least share of pixels whose mask agrees
 INTRINSICS_RTOL = 1e-3
+# MoGe-1 ViT-L on a point map of known perspective (focal MOGE1_FOCAL, shift 0):
+# the card's fx and depth against the injected ones, where the bf16 raw maps
+# round the points by ~2^-9 (0.2-0.3% on a tiny MoGe-1 on the CPU); and against
+# a CPU solve of the card's own raw points (fp32 LM solve, summation order only)
+MOGE1_FOCAL = 1.5
+MOGE1_FOCAL_RTOL = 1e-2
+MOGE1_DEPTH_RTOL = 1e-2
+MOGE1_SOLVE_RTOL = 1e-3
 
 
 def log(*args):
@@ -275,31 +293,43 @@ def phase_kernels():
         k1.append((err, ms, plain_ms, lib_ms, bnd))
     results["layer_norm"] = k1
 
-    # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor
+    # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor, at the ViT
+    # token counts (batch 1 and 8) with device times, then kv_valid at the bf16 kernel's key-tile
+    # edges (one key, a tile less one, a tile, a tile and one) for the errors alone
+    bc = attention.KEY_TILE
     k2 = []
-    for n, kv_valid in ((1370, None), (3601, None), (1201, None), (1370, 1000)):
-        qkv = randn(1, n, 3, 16, 64)
+    for b, n, kv_valid, timed in [(1, 1370, None, True), (1, 3601, None, True), (1, 1201, None, True),
+                                  (1, 1370, 1000, True), (8, 1370, None, True)] + \
+                                 [(1, 1370, kv, False) for kv in (1, bc - 1, bc, bc + 1)]:
+        qkv = randn(b, n, 3, 16, 64)
         q, k, v = qkv[:, :, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
+        before = attention.VARIANT_LAUNCHES["wgmma"]
         got, got_lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+        if attention.VARIANT_LAUNCHES["wgmma"] != before + 1:
+            raise AssertionError(f"K2 at B={b} N={n} kv_valid={kv_valid} did not launch the wgmma kernel")
         want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid, return_lse=True)
         err = (got.float() - want).abs().max().item()
         lse_err = (got_lse - want_lse).abs().max().item()
-        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, kv_valid))
-        plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, kv_valid))
-        lib_ms = cuda_ms(library_sdpa(q, k, v, kv_valid))
         kv = kv_valid or n
-        bnd = bound(bf16, flops=4 * 16 * n * kv * 64, mufu=16 * n * kv,
-                    bytes_moved=2 * 16 * 64 * 2 * (n + kv) + 16 * n * 4)
-        log(f"[K2] B=1 H=16 N={n} kv_valid={kv}: max_abs_err {err:.3e} (tol {K2_MAX_ABS}), "
-            f"lse max_abs_err {lse_err:.3e} (tol {K2_LSE_ABS}), out max {want.abs().max().item():.3f}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA flash {lib_ms:.4f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        label = f"B={b} H=16 N={n} kv_valid={kv}"
+        line = (f"[K2] {label}: max_abs_err {err:.3e} (tol {K2_MAX_ABS}), lse max_abs_err {lse_err:.3e} "
+                f"(tol {K2_LSE_ABS}), out max {want.abs().max().item():.3f}")
+        case = (err, None, None, None, None)
+        if timed:
+            ms, plain_ms, lib_ms, dev_ms = attention_times(q, k, v, kv_valid)
+            bnd = bound(bf16, flops=4 * b * 16 * n * kv * 64, mufu=b * 16 * n * kv,
+                        bytes_moved=2 * b * 16 * 64 * 2 * (n + kv) + b * 16 * n * 4)
+            line += f", {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'SDPA flash')}; bound {bnd[0]:.4f} ms ({bnd[1]})"
+            case = (err, ms, plain_ms, lib_ms, bnd, dev_ms)
+        log(line)
         if not err <= K2_MAX_ABS:
-            raise AssertionError(f"K2 flash attention disagrees at N={n}: {err} > {K2_MAX_ABS}")
+            raise AssertionError(f"K2 flash attention disagrees at {label}: {err} > {K2_MAX_ABS}")
         if not lse_err <= K2_LSE_ABS:
-            raise AssertionError(f"K2 logsumexp disagrees at N={n}: {lse_err} > {K2_LSE_ABS}")
-        k2.append((err, ms, plain_ms, lib_ms, bnd))
+            raise AssertionError(f"K2 logsumexp disagrees at {label}: {lse_err} > {K2_LSE_ABS}")
+        k2.append(case)
+        del qkv, q, k, v, got, got_lse, want, want_lse
     results["flash_attention"] = k2
+    torch.cuda.empty_cache()
 
     results["conv3x3"] = conv_cases(gen)
     results["conv3x3_grouped"] = grouped_cases(gen)
@@ -320,20 +350,34 @@ K3_MAIN = [(h, c, c, relu, res, False, n) for h, c in ((74, 256), (148, 128), (2
 K3_RAGGED = [(37, 53, 64, 64, True, True), (37, 53, 24, 20, True, False)]
 
 
-def conv_times(x, kern, bias, res, relu, iters: int = 20):
-    """Times of K3 (or K3-grouped), its plain version and F.conv2d on the
-    same inputs, two ways: CUDA events around each call (``cuda_ms``, as for
-    every other kernel: the kernels line's ``ms``/``plain_ms``/``library_ms``)
-    and device time from torch.profiler (``roofline.device_ms``: the kernels'
-    own durations, without the host's time to reach the launch), returned as
-    the line's ``device_ms``/``plain_device_ms``/``library_device_ms``."""
-    from moge_tpu_torch.ops import conv
+def call_times(kernel, plain, library, iters: int = 20, plain_iters: int = None):
+    """Times of a kernel, its plain version and the library call on the same
+    inputs, two ways: CUDA events around each call (``cuda_ms``, as for every
+    kernel: the kernels line's ``ms``/``plain_ms``/``library_ms``) and device
+    time from torch.profiler (``roofline.device_ms``: the kernels' own
+    durations, without the host's time to reach the launch), returned as the
+    line's ``device_ms``/``plain_device_ms``/``library_device_ms``."""
     from moge_tpu_torch.tools.roofline import device_ms
 
-    calls = {"": lambda: conv.conv3x3_replicate(x, kern, bias, res, relu),
-             "plain_": lambda: conv.conv3x3_plain(x, kern, bias, res, relu), "library_": library_conv(x, kern, bias)}
-    events = [cuda_ms(fn, iters) for fn in calls.values()]
-    return (*events, {f"{k}device_ms": device_ms(fn, iters) for k, fn in calls.items()})
+    calls = {"": (kernel, iters), "plain_": (plain, plain_iters or iters), "library_": (library, iters)}
+    events = [cuda_ms(fn, n) for fn, n in calls.values()]
+    return (*events, {f"{k}device_ms": device_ms(fn, n) for k, (fn, n) in calls.items()})
+
+
+def attention_times(q, k, v, kv_valid):
+    """``call_times`` of K2, its plain version and SDPA flash."""
+    from moge_tpu_torch.ops import attention
+
+    return call_times(lambda: attention.flash_attention(q, k, v, kv_valid),
+                      lambda: attention.attention_plain(q, k, v, kv_valid), library_sdpa(q, k, v, kv_valid))
+
+
+def conv_times(x, kern, bias, res, relu, iters: int = 20):
+    """``call_times`` of K3 (or K3-grouped), its plain version and F.conv2d."""
+    from moge_tpu_torch.ops import conv
+
+    return call_times(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu),
+                      lambda: conv.conv3x3_plain(x, kern, bias, res, relu), library_conv(x, kern, bias), iters)
 
 
 def conv_times_text(ms, plain_ms, lib_ms, dev_ms, library="F.conv2d"):
@@ -399,16 +443,25 @@ def conv_cases(gen):
     return cases
 
 
-def check_conv_variants(label: str, counts: dict) -> dict:
-    """Every K3 and K3-grouped launch of a counted run took a pipelined wgmma
-    variant (``conv.VARIANT_LAUNCHES``, set to 0 with the other counts)."""
-    from moge_tpu_torch.ops import conv
+VARIANTS_BY_PATH = {}  # path -> the launches per run of each kernel variant (conv: K3 and K3-grouped; attention: K2)
 
-    variants = dict(conv.VARIANT_LAUNCHES)
-    pipelined = sum(variants[k] for k in conv.PIPELINED)
-    if pipelined != counts["conv3x3"] + counts["conv3x3_grouped"] or pipelined != sum(variants.values()):
-        raise AssertionError(f"{label}: K3 launches by variant {variants}, counts {counts['conv3x3']} + "
+
+def check_variants(path: str, label: str, counts: dict) -> dict:
+    """Every K3 and K3-grouped launch of a counted run took a pipelined wgmma
+    variant (``conv.VARIANT_LAUNCHES``), and every K2 launch, bf16 on every
+    counted path, the wgmma kernel (``attention.VARIANT_LAUNCHES``); both set
+    to 0 with the other counts. Records the run's variants under ``path``."""
+    from moge_tpu_torch.ops import attention, conv
+
+    variants = {"conv": dict(conv.VARIANT_LAUNCHES), "attention": dict(attention.VARIANT_LAUNCHES)}
+    pipelined = sum(variants["conv"][k] for k in conv.PIPELINED)
+    if pipelined != counts["conv3x3"] + counts["conv3x3_grouped"] or pipelined != sum(variants["conv"].values()):
+        raise AssertionError(f"{label}: K3 launches by variant {variants['conv']}, counts {counts['conv3x3']} + "
                              f"{counts['conv3x3_grouped']}: not all on the pipelined wgmma path")
+    if variants["attention"] != {"wgmma": counts["flash_attention"], "fp32": 0}:
+        raise AssertionError(f"{label}: K2 launches by variant {variants['attention']}, count "
+                             f"{counts['flash_attention']}: not all on the wgmma kernel")
+    VARIANTS_BY_PATH[path] = variants
     return variants
 
 
@@ -556,9 +609,11 @@ def phase_probes(card: str):
     dev = torch.device(DEVICE)
     results = {name: [] for name in PROBE_KERNELS}
 
-    # T1: every variant at the ViT-L token count and at a ragged one (1201 -> 1280 rows)
-    for n in (3601, 1201):
-        q, k, v, v_ext, bias = fs.make_inputs(n, dev)
+    # T1: every variant at the ViT-L token count and at a ragged one (1201 -> 1280 rows), then
+    # at 1216 rows (not a multiple of the kernel's 128-key tile) for the errors alone; base at
+    # N = 3601 also by device time, beside SDPA's
+    for n, n_pad, timed in ((3601, None, True), (1201, None, True), (1201, 1216, False)):
+        q, k, v, v_ext, bias = fs.make_inputs(n, dev, n_pad=n_pad)
         n_pad = q.shape[1]
         for variant in fs.VARIANTS:
             vin = v_ext if variant.startswith("mxusum") else v
@@ -566,21 +621,33 @@ def phase_probes(card: str):
             want = fs.flash_softmax_variant_plain(variant, q, k, vin, bias, n).float()
             err = (got - want).abs().max().item()
             tol = fs.REL_TOL[variant] * want.abs().max().item()
-            ms = cuda_ms(lambda: fs.flash_softmax_variant(variant, q, k, vin, bias, n))
-            plain_ms = cuda_ms(lambda: fs.flash_softmax_variant_plain(variant, q, k, vin, bias, n), 3, 1)
-            lib_ms = None
-            if variant == "base":  # SDPA over the n real keys, unscaled logits as the probe has them
-                kr, vr = k[None, :, :n].contiguous(), v[None, :, :n].contiguous()
-                lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q[None], kr, vr, scale=1.0))
-            bnd = fs.bounds(q.shape[0], n_pad, n, variant, CLOCK_HZ)
-            log(f"[T1] {variant} bh=16 N={n} (padded {n_pad}): max_abs_err {err:.3e} (tol {tol:.3e}), "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{'' if lib_ms is None else f', SDPA {lib_ms:.4f} ms'}, "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            line = f"[T1] {variant} bh=16 N={n} (padded {n_pad}): max_abs_err {err:.3e} (tol {tol:.3e})"
+            case = (err, None, None, None, None)
+            if timed:
+                kernel = functools.partial(fs.flash_softmax_variant, variant, q, k, vin, bias, n)
+                plain = functools.partial(fs.flash_softmax_variant_plain, variant, q, k, vin, bias, n)
+                bnd = fs.bounds(q.shape[0], n_pad, n, variant, CLOCK_HZ)
+                if variant == "base":  # SDPA over the n real keys, unscaled logits as the probe has them
+                    kr, vr = k[None, :, :n].contiguous(), v[None, :, :n].contiguous()
+                    library = functools.partial(torch.nn.functional.scaled_dot_product_attention, q[None], kr, vr,
+                                                scale=1.0)
+                if variant == "base" and n == 3601:
+                    ms, plain_ms, lib_ms, dev_ms = call_times(kernel, plain, library, plain_iters=3)
+                    line += f", {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'SDPA')}"
+                    case = (err, ms, plain_ms, lib_ms, bnd, dev_ms)
+                else:
+                    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, 3, 1)
+                    lib_ms = cuda_ms(library) if variant == "base" else None
+                    line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                             f"{'' if lib_ms is None else f', SDPA {lib_ms:.4f} ms'}")
+                    case = (err, ms, plain_ms, lib_ms, bnd)
+                line += f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+            log(line)
             if variant == "noexp" and (got.any() or want.any()):
                 raise AssertionError(f"T1 noexp at N={n}: the output is not exactly 0")
             if not err <= tol:
-                raise AssertionError(f"T1 {variant} disagrees at N={n}: {err} > {tol}")
-            results["exp_flash_softmax"].append((err, ms, plain_ms, lib_ms, bnd))
+                raise AssertionError(f"T1 {variant} disagrees at N={n} (padded {n_pad}): {err} > {tol}")
+            results["exp_flash_softmax"].append(case)
         del q, k, v, v_ext, bias, got, want
         torch.cuda.empty_cache()
 
@@ -628,6 +695,7 @@ def phase_probes(card: str):
               "exp_dense_pallas": dense.measure(dev, clock_hz=CLOCK_HZ)}
     torch.cuda.synchronize()
     counts = read_counts()
+    check_variants("probes", "probes", counts)
     t1 = tables["exp_flash_softmax"]
     for r in t1["rows"]:
         diff = "" if r["max_diff_vs_base"] is None else f", max|diff vs base| {r['max_diff_vs_base']:.3e}"
@@ -732,6 +800,7 @@ def reset_counts():
     norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
     conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = 0
     conv.VARIANT_LAUNCHES.update(dict.fromkeys(conv.VARIANT_LAUNCHES, 0))
+    attention.VARIANT_LAUNCHES.update(dict.fromkeys(attention.VARIANT_LAUNCHES, 0))
     exp_flash_softmax.LAUNCHES = exp_vpu_ceiling.LAUNCHES = 0
     exp_dense_pallas.LAUNCHES.update(dict.fromkeys(exp_dense_pallas.LAUNCHES, 0))
 
@@ -779,7 +848,7 @@ def phase_slice(card: str):
         counts_seen.append(counts)
         if counts != expect:
             raise AssertionError(f"{label}: kernel launches {counts}, expected {expect} per forward")
-        variants = check_conv_variants(label, counts)
+        variants = check_variants("infer", label, counts)
         shapes = {k: tuple(v.shape) for k, v in out.items()}
         want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w), "normal": (h, w, 3)}
         if shapes != want:
@@ -805,7 +874,7 @@ def phase_slice(card: str):
             times.append((time.perf_counter() - t0) * 1e3)
         latencies[label] = statistics.median(times)
         log(f"[slice] {label}: mask {mask.float().mean().item():.3f} of pixels, "
-            f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, K3 variants {variants}, "
+            f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, variants {variants}, "
             f"warm median {latencies[label]:.2f} ms ({card})")
     return model, (counts_seen[0], len(counts_seen)), latencies
 
@@ -920,7 +989,7 @@ def phase_batched(card: str, seq):
                 counts = read_counts()
                 if counts != expect[batched]:
                     raise AssertionError(f"{label} batched={batched}: launches {counts}, expected {expect[batched]}")
-                check_conv_variants(f"{label} batched={batched}", counts)
+                check_variants("batched_heads", f"{label} batched={batched}", counts)
                 ms[batched] = wall_ms(lambda: model.infer(images, num_tokens=num_tokens), 3)
             errs = [compare_answers(f"{label} image {i}", {k: v[i] for k, v in outs[True].items()},
                                     {k: v[i] for k, v in outs[False].items()}) for i in range(batch)]
@@ -985,7 +1054,7 @@ def phase_serve(card: str, model):
     want_counts = {k: v * batches for k, v in per_forward.items()}
     if counts != want_counts:
         raise AssertionError(f"serve: launches {counts} over {batches} batches, expected {want_counts}")
-    check_conv_variants("serve", counts)
+    check_variants("serve", "serve", counts)
     errs = []
     for i, (image, fov) in enumerate(zip(images, fovs)):
         want = model.infer(torch.from_numpy(image), num_tokens=SERVE_TOKENS, fov_x=fov)
@@ -1003,8 +1072,14 @@ def phase_serve(card: str, model):
 def phase_moge1(card: str):
     """moge-vitl (MoGe-1 ViT-L) at full width, random weights, bf16: three
     ``infer`` requests (one with fov_x, one non-square), launch counters per
-    forward; then a ViT-S MoGe-1 with the same head, bf16 on the card
-    against fp32 on the CPU."""
+    forward. The points head first gets a point map of known perspective
+    (``make_points_perspective_v1``: focal 1.5, shift 0, depth exp(0.3 +
+    0.5 u)) and the mask head a constant 1, so that the focal/shift solve has
+    one answer: each request must keep the whole image in the mask, miss the
+    solve's degenerate fallback (focal 1), match the injected focal and depth
+    (MOGE1_FOCAL_RTOL, MOGE1_DEPTH_RTOL) and a CPU solve of the card's own raw
+    points (MOGE1_SOLVE_RTOL). Then a ViT-S MoGe-1 with the same head, bf16 on
+    the card against fp32 on the CPU."""
     import math
 
     import numpy as np
@@ -1012,10 +1087,13 @@ def phase_moge1(card: str):
 
     from moge_tpu_torch.models.presets import get_preset
     from moge_tpu_torch.models.v1 import MoGeModel
+    from moge_tpu_torch.ops.solvers import recover_focal_shift
+    from torch_tiny_config import make_points_perspective_v1, perspective_v1_answer
 
     config = get_preset("moge-vitl")["config"]
     expect = expected_v1_launches(config)
     model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+    make_points_perspective_v1(model.module, focal=MOGE1_FOCAL)
     rng = np.random.default_rng(SEED + 6)
     latencies, counts_seen = {}, []
     for label, (h, w), kwargs in (("518x518", (518, 518), {}), ("518x518 fov_x=60", (518, 518), {"fov_x": 60.0}),
@@ -1028,24 +1106,57 @@ def phase_moge1(card: str):
         counts_seen.append(counts)
         if counts != expect:
             raise AssertionError(f"moge-vitl {label}: kernel launches {counts}, expected {expect} per forward")
-        check_conv_variants(f"moge-vitl {label}", counts)
+        check_variants("moge1_infer", f"moge-vitl {label}", counts)
         shapes = {k: tuple(v.shape) for k, v in out.items()}
         want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w)}
         if shapes != want or out["mask"].dtype != torch.bool:
             raise AssertionError(f"moge-vitl {label}: output shapes {shapes} (mask {out['mask'].dtype}), expected {want}")
         mask = out["mask"]
-        if not torch.isfinite(out["intrinsics"]).all() or not torch.isfinite(out["depth"][mask]).all():
-            raise AssertionError(f"moge-vitl {label}: non-finite intrinsics or depth inside the mask")
-        unmasked = model.infer(image, apply_mask=False, **kwargs)  # random weights may mask most pixels
-        if not all(torch.isfinite(unmasked[k]).all() for k in ("points", "depth")):
-            raise AssertionError(f"moge-vitl {label}: non-finite points or depth without the mask")
+        if not mask.all():
+            raise AssertionError(f"moge-vitl {label}: mask holds {mask.float().mean().item():.4f} of the pixels, "
+                                 "expected all of them (the mask head outputs 1)")
+        if not torch.isfinite(out["intrinsics"]).all() or not torch.isfinite(out["depth"]).all():
+            raise AssertionError(f"moge-vitl {label}: non-finite intrinsics or depth")
+        fx = out["intrinsics"][0, 0].item()
+        aspect = w / h
+        fallback_fx = 0.5 * (1 + aspect ** 2) ** 0.5 / aspect  # the solve's degenerate answer, focal 1
+        if abs(fx - fallback_fx) <= 1e-6 * fallback_fx:
+            raise AssertionError(f"moge-vitl {label}: fx {fx} is the solve's degenerate fallback")
+
+        # the card's solve against the same solve on the CPU from the card's raw points
+        with torch.inference_mode():
+            raw = model.module(image[None], model.module.num_tokens_range[1], torch.bfloat16)
+        raw_points = raw["points"][0].cpu()
+        raw_mask = (raw["mask"][0] > model.module.mask_threshold).cpu()
         if "fov_x" in kwargs:
-            fx, want_fx = out["intrinsics"][0, 0].item(), 0.5 / math.tan(math.radians(kwargs["fov_x"]) / 2)
+            want_fx = 0.5 / math.tan(math.radians(kwargs["fov_x"]) / 2)
             if abs(fx - want_fx) > 1e-5 * want_fx:
                 raise AssertionError(f"moge-vitl {label}: fx {fx} does not follow fov_x (want {want_fx})")
+            focal = torch.tensor(want_fx * 2 * aspect / (1 + aspect ** 2) ** 0.5)
+            _, cpu_shift = recover_focal_shift(raw_points[None], raw_mask[None], focal=focal[None])
+            cpu_fx = want_fx
+        else:
+            cpu_focal, cpu_shift = recover_focal_shift(raw_points[None], raw_mask[None])
+            cpu_fx = cpu_focal.item() / 2 * (1 + aspect ** 2) ** 0.5 / aspect
+            true_fx, _, true_depth = perspective_v1_answer(h, w, focal=MOGE1_FOCAL)
+            focal_err = abs(fx - true_fx) / true_fx
+            inner = (slice(2, -2), slice(2, -2))  # the resize to the image clamps at its border
+            depth_err = ((out["depth"].cpu()[inner] - true_depth[inner]).norm() / true_depth[inner].norm()).item()
+            log(f"[moge1] moge-vitl {label}: injected focal {MOGE1_FOCAL}: fx {fx:.5f} vs {true_fx:.5f} (rel "
+                f"{focal_err:.3e}, tol {MOGE1_FOCAL_RTOL}), depth rel L2 {depth_err:.3e} (tol {MOGE1_DEPTH_RTOL})")
+            if not (focal_err <= MOGE1_FOCAL_RTOL and depth_err <= MOGE1_DEPTH_RTOL):
+                raise AssertionError(f"moge-vitl {label}: the solve missed the injected perspective")
+        cpu_depth = raw_points[..., 2] + cpu_shift[0]
+        solve_fx = abs(fx - cpu_fx) / cpu_fx
+        solve_depth = ((out["depth"].cpu() - cpu_depth).norm() / cpu_depth.norm()).item()
+        log(f"[moge1] moge-vitl {label}: card vs CPU solve of the same raw points: fx rel {solve_fx:.3e}, "
+            f"depth rel L2 {solve_depth:.3e} (tol {MOGE1_SOLVE_RTOL}), shift card/CPU "
+            f"{(out['depth'].cpu() - raw_points[..., 2]).mean().item():.3e}/{cpu_shift.item():.3e}")
+        if not (solve_fx <= MOGE1_SOLVE_RTOL and solve_depth <= MOGE1_SOLVE_RTOL):
+            raise AssertionError(f"moge-vitl {label}: the card's solve disagrees with the CPU's")
         latencies[label] = wall_ms(lambda: model.infer(image, **kwargs), 3)
         log(f"[moge1] moge-vitl {label}: mask {mask.float().mean().item():.3f} of pixels, "
-            f"fx {out['intrinsics'][0, 0].item():.4f}, launches {counts}, warm median {latencies[label]:.2f} ms ({card})")
+            f"fx {fx:.4f}, launches {counts}, warm median {latencies[label]:.2f} ms ({card})")
     del model
 
     small = dict(config, encoder="dinov2_vits14")
@@ -1144,7 +1255,7 @@ def phase_train(card: str):
                 raise AssertionError(f"non-finite gradients (update skipped) at {num_tokens} tokens, step {i}")
             if counts != expect:
                 raise AssertionError(f"train step launches {counts}, expected {expect}")
-            check_conv_variants(f"train {num_tokens} tokens step {i}", counts)
+            check_variants("train", f"train {num_tokens} tokens step {i}", counts)
             steps.append({"num_tokens": num_tokens, "step": i, "ms": wall_ms, "peak_gib": peak_gib, "loss": total})
     if state.step != len(TRAIN_TOKENS) * TRAIN_STEPS or tx.count != state.step:
         raise AssertionError(f"step count {state.step}, optimizer updates {tx.count}")
@@ -1308,11 +1419,14 @@ def main() -> int:
         cases = kernel_results[name]
         _, ms, plain_ms, library_ms, (bound_ms, bound_by), *device = cases[REPORT_CASE[name]]
         by_path = {path: {"per_run": per_run[name], "runs": runs} for path, (per_run, runs) in launches.items()}
+        kind = {"flash_attention": "attention", "conv3x3": "conv", "conv3x3_grouped": "conv"}.get(name)
+        variants = {"variants_by_path": {p: v[kind] for p, v in VARIANTS_BY_PATH.items()}} if kind else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(p["per_run"] * p["runs"] for p in by_path.values()),
                         "infer_launches": by_path["infer"]["per_run"], "launches_by_path": by_path,
                         "max_abs_err": max(c[0] for c in cases), "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **dict(*device)})
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **dict(*device),
+                        **variants})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
                       "serve": serve_stats, "moge1_infer_ms": moge1_ms, "train_steps": train_steps,
                       "probes": probe_tables}))

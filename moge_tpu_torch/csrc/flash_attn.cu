@@ -5,29 +5,34 @@
 // query row i,
 //   o_i = sum_j softmax_j(scale * q_i . k_j) v_j,   lse_i = logsumexp_j(scale * q_i . k_j)
 // over the keys j < kv_valid, with the softmax in fp32 and the output
-// rounded once to the input dtype. The LSE is emitted for a later backward.
+// rounded once to the input dtype. The LSE (natural log) is emitted for the
+// backward (K2b-dq, K2b-dkv read it).
 //
-// What bounds it on an H100: at the ViT token counts (N = 1201..3601,
-// 16 heads) the work is 4*N^2*64 flops per head against 4*N*64 elements of
-// traffic, so it is bound by the matrix units and the softmax, never by
+// What bounds it on an H100: at the ViT token counts (N = 1201..3601, 16
+// heads) the work is 4*N^2*64 tensor-core flops and N^2 exps per head
+// against 4*N*64 elements of traffic: bound by the tensor cores (989
+// TFLOP/s bf16) with the exps on the MUFU units close behind, never by
 // device memory, as long as the (N, N) logits never leave the chip.
-// Design: one block of 4 warps per (q tile of 64 rows, head, batch); each
-// warp owns 16 query rows. The block walks the keys in tiles of 64 staged in
-// shared memory, keeps a running max and sum per row (the online softmax),
-// and rescales its output accumulator per tile, so logits live only in
-// shared memory. q, k and v are read through their strides, straight from
-// the (B, N, 3, H, 64) qkv projection: no transposed copies. Keys at or past
-// kv_valid are masked by index with -inf. For bf16 the two products
-// (Q K^T and P V) run on the tensor cores through WMMA 16x16x16 tiles with
-// fp32 accumulation; the fp32 variant uses plain fp32 FMAs.
-// Deliberately simple: no cp.async/TMA pipelining, no wgmma, S and O pass
-// through shared memory every tile. Those are later optimisations.
+//
+// bf16, the main path: the Hopper kernel of flash_fwd.cuh (its note: TMA
+// rings of 128-key K/V tiles, both products on wgmma, the softmax in
+// registers), with the chain of K2: the
+// scale folded into the exp, keys at or past kv_valid masked by index (TMA
+// maps K and V over kv_valid rows, so the keys past it arrive as zeros), a
+// row with no live key yet at m = 0 (the port's rule, not the TPU kernel's
+// m >= 0 assumption), and the natural-log lse. At 16 heads and B = 1 that is
+// 352 blocks at 1370 tokens (0.9 of one wave of 3 blocks per SM on 132
+// SMs) and 912 at 3601 (2.3 waves); B = 8 at 1370 tokens 2816 (7.1 waves).
+//
+// fp32 (parity and gradient checks, not the main path): the plain-FMA kernel
+// below. Its numbers hold the train-step parity within 1e-4; a TF32 wgmma
+// would change them.
 
-#include "common.cuh"
-
-#include <mma.h>
+#include "flash_fwd.cuh"
 
 namespace {
+
+// ----------------------------------------------------------------- fp32 path
 
 constexpr int kD = 64;         // head dim
 constexpr int kBr = 64;        // query rows per block
@@ -74,28 +79,6 @@ __device__ __forceinline__ void qk_tile(const float* q, const float* k, float* s
   }
 }
 
-__device__ __forceinline__ void qk_tile(const __nv_bfloat16* q, const __nv_bfloat16* k, float* s,
-                                        int) {
-  using namespace nvcuda;
-  constexpr int ld = Smem<__nv_bfloat16>::kLdT;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[kD / 16];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wmma::load_matrix_sync(a[kk], q + kk * 16, ld);
-#pragma unroll
-  for (int nt = 0; nt < kBc / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      // K^T as a col-major (kD x kBc) operand is K's row-major storage.
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, k + nt * 16 * ld + kk * 16, ld);
-      wmma::mma_sync(acc, a[kk], b, acc);
-    }
-    wmma::store_matrix_sync(s + nt * 16, acc, kLdS, wmma::mem_row_major);
-  }
-}
-
 // O_w (16 x kD, fp32, already rescaled) += P_w (16 x kBc) . V (kBc x kD).
 __device__ __forceinline__ void pv_tile(const float* p, const float* v, float* o, int lane) {
   constexpr int ldp = Smem<float>::kLdP, ldv = Smem<float>::kLdT;
@@ -108,33 +91,12 @@ __device__ __forceinline__ void pv_tile(const float* p, const float* v, float* o
   }
 }
 
-__device__ __forceinline__ void pv_tile(const __nv_bfloat16* p, const __nv_bfloat16* v, float* o,
-                                        int) {
-  using namespace nvcuda;
-  constexpr int ldp = Smem<__nv_bfloat16>::kLdP, ldv = Smem<__nv_bfloat16>::kLdT;
-#pragma unroll
-  for (int nt = 0; nt < kD / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, o + nt * 16, kLdO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBc / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, p + kk * 16, ldp);
-      wmma::load_matrix_sync(b, v + kk * 16 * ldv + nt * 16, ldv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(o + nt * 16, acc, kLdO, wmma::mem_row_major);
-  }
-}
-
-struct Strides { int64_t b, n, h; };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int H, int Nq, int kv_valid,
-                 Strides sq, Strides sk, Strides sv, float scale) {
+flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ out, float* __restrict__ lse, int H, int Nq, int kv_valid,
+              Strides sq, Strides sk, Strides sv, float scale) {
   using S = Smem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -210,41 +172,65 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
-           int Nq, int kv_valid, Strides sq, Strides sk, Strides sv, float scale,
-           cudaStream_t stream) {
-  const size_t smem = Smem<T>::total;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H, int Nq,
+               int kv_valid, Strides sq, Strides sk, Strides sv, float scale, cudaStream_t stream) {
+  static std::atomic<uint64_t> opted{0};
+  const cudaError_t e = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_f32<float>),
+                                    static_cast<int>(Smem<float>::total), opted);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Nq + kBr - 1) / kBr, H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, H, Nq, kv_valid, sq, sk, sv, scale);
+  flash_fwd_f32<float><<<grid, kThreads, Smem<float>::total, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, H, Nq, kv_valid, sq, sk, sv, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ bf16 path (wgmma)
+
+struct K2Chain {
+  static constexpr bool bias = false, clamp60 = false, round_bf16 = false, no_exp = false, use_max = true,
+                        floor0 = false, rescale = true, ext = false, pad_fix = false, lse = true;
+};
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H, int Nq,
+                int kv_valid, Strides sq, Strides sk, Strides sv, float scale, int bc, int stages,
+                cudaStream_t st) {
+  if (bc != fwd::kBc || stages != fwd::kStages) return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams prm{};
+  prm.out = static_cast<__nv_bfloat16*>(out);
+  prm.out_sb = static_cast<int64_t>(Nq) * H * kD;
+  prm.out_sn = static_cast<int64_t>(H) * kD;
+  prm.out_sh = kD;
+  prm.lse = lse;
+  prm.Nq = Nq;
+  prm.n_keys = kv_valid;
+  prm.c = scale * 1.4426950408889634f;
+  prm.scale = scale;
+  return launch_flash_fwd<K2Chain>(prm, q, k, v, B, H, sq, sk, sv, st);
 }
 
 }  // namespace
 
 // q: (B, Nq, H, 64), k/v: (B, Nkv, H, 64), each with unit stride on the last
-// axis and the given element strides for (b, n, h); 16-byte aligned rows.
-// out: (B, Nq, H, 64) contiguous; lse: (B, H, Nq) fp32. Keys >= kv_valid are
-// masked. Returns cudaGetLastError() after the launch (0 on success).
+// axis and the given element strides for (b, n, h); 16-byte aligned rows and
+// strides. out: (B, Nq, H, 64) contiguous; lse: (B, H, Nq) fp32. Keys >=
+// kv_valid are masked. bc, stages: the bf16 kernel's key tile and ring depth
+// as ops/attention.py::flash_plan has them (they must be flash_fwd.cuh's),
+// ignored for fp32. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int moge_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                         void* lse, int B, int H, int Nq, int kv_valid,
                                         int64_t sqb, int64_t sqn, int64_t sqh,
                                         int64_t skb, int64_t skn, int64_t skh,
                                         int64_t svb, int64_t svn, int64_t svh,
-                                        float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Nq <= 0 || kv_valid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                        float scale, int dtype, int bc, int stages, void* stream) {
+  if (B <= 0 || H <= 0 || Nq <= 0 || kv_valid <= 0 || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sqb, sqn, sqh}, sk{skb, skn, skh}, sv{svb, svn, svh};
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, out, l, B, H, Nq, kv_valid, sq, sk, sv, scale, st);
-  if (dtype == kFloat32)
-    return launch<float>(q, k, v, out, l, B, H, Nq, kv_valid, sq, sk, sv, scale, st);
+    return launch_bf16(q, k, v, out, l, B, H, Nq, kv_valid, sq, sk, sv, scale, bc, stages, st);
+  if (dtype == kFloat32) return launch_f32(q, k, v, out, l, B, H, Nq, kv_valid, sq, sk, sv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

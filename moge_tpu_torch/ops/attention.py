@@ -17,12 +17,20 @@ Layout is (B, N, H, D), as in the JAX package. The kernels read q, k, v and
 dO through their strides and write dq, dk, dv through theirs, so the
 per-head views of a qkv projection and of its gradient need no transposed
 copies.
+
+For bf16, K2 is a Hopper kernel (``wgmma`` on K/V tiles brought by TMA);
+``flash_plan`` gives its launch (key tile, ring depth, grid, shared memory
+and the three tensor maps) and refuses a view TMA cannot read. Each K2
+launch is also counted under its variant in ``VARIANT_LAUNCHES``:
+``wgmma`` (bf16) or ``fp32`` (the plain-FMA kernel the fp32 parity checks
+run).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,18 +38,67 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "attention_bwd_delta", "flash_attention_qkv", "attention_plain",
-           "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"]
+           "flash_plan", "FlashPlan", "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "VARIANT_LAUNCHES"]
 
 # kernel launches (never made by the plain versions): K2 by flash_attention_fwd,
 # K2b-dq and K2b-dkv by flash_attention_bwd
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+VARIANT_LAUNCHES = {"wgmma": 0, "fp32": 0}  # every K2 launch, counted once more under its variant
 
 _HEAD_DIM = 64  # every DINOv2 arch of the repo (S/B/L/G/T) has 64-wide heads
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# the bf16 kernel's query rows per block (one warpgroup), keys per K/V tile
+# and ring slots, as csrc/flash_fwd.cuh builds it
+Q_ROWS, KEY_TILE, STAGES = 64, 128, 2
+_ROW_BYTES = 2 * _HEAD_DIM
+_GRID_YZ = 65535
+
+
+class FlashPlan(NamedTuple):
+    """One bf16 K2 launch: ``bc`` keys per K/V tile in a ring of ``stages``
+    slots, the grid (query tiles, H, B), the dynamic shared memory in bytes,
+    and per operand (q, k, v) its TMA tensor map as (dims, byte strides,
+    box): dims {64, H, N, B} (N = Nq for q, kv_valid for k and v), the byte
+    strides of dims 1-3, the box of one head's rows."""
+    bc: int
+    stages: int
+    grid: Tuple[int, int, int]
+    smem: int
+    maps: Tuple[Tuple[Tuple[int, int, int, int], Tuple[int, int, int], Tuple[int, int, int, int]], ...]
+
+
+def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) -> FlashPlan:
+    """The bf16 kernel's launch for (B, N, H, 64) q/k/v views (any device:
+    it reads shapes, strides and addresses only). Raises ValueError for a
+    view TMA cannot read: each row unit-stride, each byte stride a multiple
+    of 16, each base address 16-byte aligned."""
+    B, Nq, H, _ = q.shape
+    maps = []
+    for name, t, n, rows in (("q", q, Nq, Q_ROWS), ("k", k, kv_valid, KEY_TILE), ("v", v, kv_valid, KEY_TILE)):
+        sb, sn, sh = (s * t.element_size() for s in t.stride()[:3])
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 or not 0 <= s < 2 ** 40 for s in (sb, sn, sh)):
+            raise ValueError(f"flash_attention kernel reads {name} by TMA: it needs unit-stride rows, byte "
+                             f"strides that are multiples of 16 and a 16-byte aligned base (strides "
+                             f"{t.stride()}, address {t.data_ptr()})")
+        maps.append(((_HEAD_DIM, H, n, B), (sh, sn, sb), (_HEAD_DIM, 1, rows, 1)))
+    if H > _GRID_YZ or B > _GRID_YZ:
+        raise ValueError(f"flash_attention kernel: H={H} and B={B} must each be at most {_GRID_YZ}")
+    smem = Q_ROWS * _ROW_BYTES + 2 * STAGES * KEY_TILE * _ROW_BYTES + 1024  # + slack to align to 1 KB
+    return FlashPlan(KEY_TILE, STAGES, (-(-Nq // Q_ROWS), H, B), smem, tuple(maps))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_entry():
+    """K2's library and its C entry point, argtypes set (once)."""
+    lib = _build.load("flash_attn")
+    fn = lib.moge_flash_attention_fwd
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,19 +152,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_valid, return_lse=True)
     _check(q, k, v, kv_valid)
+    if q.dtype == torch.bfloat16:
+        plan = flash_plan(q, k, v, kv_valid)
+        tile, variant = (plan.bc, plan.stages), "wgmma"
+    else:
+        tile, variant = (0, 0), "fp32"
     B, Nq, H, D = q.shape
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attn")
-    fn = lib.moge_flash_attention_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib, fn = _fwd_entry()
     with torch.cuda.device(q.device):  # launch on the tensors' card
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 B, H, Nq, kv_valid, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                D ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
+                D ** -0.5, _DTYPES[q.dtype], *tile, _build.stream_ptr(q))
     _build.check(lib, rc, "flash_attention")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[variant] += 1
     return out, lse
 
 

@@ -40,8 +40,9 @@ def command():
     @click.option("--maps", "save_maps_", is_flag=True, help="Save output maps and fov.json.")
     @click.option("--glb", "save_glb_", is_flag=True, help="Save a textured .glb mesh.")
     @click.option("--ply", "save_ply_", is_flag=True, help="Save a .ply point cloud.")
+    @click.option("--show", "show", is_flag=True, help="Accepted for the reference's interface; only warns (headless).")
     def infer(input_path, fov_x_, output_path, pretrained_path, model_version, device_name,
-              use_fp16, resize_to, resolution_level, num_tokens, threshold, save_maps_, save_glb_, save_ply_):
+              use_fp16, resize_to, resolution_level, num_tokens, threshold, save_maps_, save_glb_, save_ply_, show):
         import cv2
 
         from ..models import import_model_class_by_version
@@ -123,6 +124,8 @@ def command():
                         save_ply(save_path / "pointcloud.ply", vertices, np.zeros((0, 3), np.uint32), vertex_colors,
                                  vertex_normals)
             print(f"Saved results for {image_path} -> {save_path}")
+        if show:
+            warnings.warn("--show is not supported: this command runs headless and opens no viewer.")
 
     return infer
 

@@ -86,6 +86,22 @@ def test_infer_cli_exports_meshes(checkpoints, tmp_path):
     assert (tmp_path / "out" / "scene" / "pointcloud.ply").is_file()
 
 
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_infer_cli_accepts_show_and_warns(checkpoints, tmp_path, version):
+    """``--show`` (the reference's viewer) is accepted, warns once that the
+    command is headless, and the maps are written as without it."""
+    from click.testing import CliRunner
+
+    _write_image(tmp_path / "scene.png", 56, 70, seed=2)
+    with pytest.warns(UserWarning, match="headless"):
+        result = CliRunner().invoke(infer.command(), [
+            "-i", str(tmp_path / "scene.png"), "-o", str(tmp_path / "out"), "--pretrained", str(checkpoints[version]),
+            "--version", version, "--device", "cpu", "--num_tokens", "16", "--maps", "--show"])
+    assert result.exit_code == 0, result.output
+    for name in ("depth.exr", "points.exr", "mask.png", "fov.json"):
+        assert (tmp_path / "out" / "scene" / name).is_file(), name
+
+
 def test_infer_cli_refuses_a_missing_card(checkpoints, tmp_path):
     from click.testing import CliRunner
 

@@ -59,13 +59,23 @@ def test_layer_norm(dev, dtype, m, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,nq,nkv,h,kv_valid", [(2, 77, 77, 3, None), (1, 130, 200, 2, 150), (1, 64, 64, 1, 1)])
+@pytest.mark.parametrize("b,nq,nkv,h,kv_valid", [
+    (2, 77, 77, 3, None), (1, 130, 200, 2, 150), (1, 64, 64, 1, 1),
+    # kv_valid on and around the edges of the bf16 kernel's 128-key tiles and inside one, one key, Nq != Nkv
+    (2, 300, 300, 3, 63), (2, 300, 300, 3, 64), (2, 300, 300, 3, 65), (2, 300, 300, 3, 127), (2, 300, 300, 3, 128),
+    (2, 300, 300, 3, 129), (1, 300, 300, 2, 1), (1, 257, 401, 2, 385),
+    # the main path's widths: batch 8 at 1370 tokens, 3601 tokens
+    (8, 1370, 1370, 16, None), (1, 3601, 3601, 16, None)])
 def test_flash_attention(dev, dtype, b, nq, nkv, h, kv_valid):
     g = _gen(dev, nq * nkv)
     qkv = torch.randn(b, nkv, 3, h, 64, device=dev, generator=g).to(dtype)
     q = (torch.randn(b, nq, h, 64, device=dev, generator=g) * 2).to(dtype)
     k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, as the encoder passes them
+    before = dict(attention.VARIANT_LAUNCHES)
     out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+    variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    assert {k_: n - before[k_] for k_, n in attention.VARIANT_LAUNCHES.items()} == \
+        {k_: int(k_ == variant) for k_ in before}
     want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid, return_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
     if dtype == torch.float32:
@@ -369,7 +379,8 @@ def test_dense_objective_rejects_what_the_kernel_does_not_take(dev):
 # versions, each to its tool's REL_TOL relative to max |plain|
 
 
-@pytest.mark.parametrize("n,n_pad,bh", [(200, 256, 2), (130, 192, 3), (64, 64, 1)])
+# n_pad 192, 64 and 1216 are not multiples of the kernel's 128-key tile
+@pytest.mark.parametrize("n,n_pad,bh", [(200, 256, 2), (130, 192, 3), (64, 64, 1), (1201, 1216, 4)])
 @pytest.mark.parametrize("variant", ["base", "nobias", "bf16sm", "noexp", "nomax", "mxusum", "mxusum_nomax"])
 def test_flash_softmax_variant(dev, variant, n, n_pad, bh):
     from moge_tpu_torch.tools import exp_flash_softmax as fs

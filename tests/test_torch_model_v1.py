@@ -151,3 +151,24 @@ def test_bf16_forward_on_cpu_stays_close_to_fp32(models):
     for key in raw32:
         rel = ((raw16[key] - raw32[key]).norm() / raw32[key].norm()).item()
         assert rel <= 3e-2, key  # the tolerance chip_smoke.py holds the card's bf16 decode to
+
+
+@pytest.mark.parametrize("hw", [(112, 112), (84, 140)])
+def test_infer_recovers_the_injected_focal(hw):
+    """A tiny MoGe-1 whose point map is a known perspective
+    (``make_points_perspective_v1``, focal 1.5): ``infer`` finds that focal,
+    a shift of 0 and the surface's depth, with the whole image in the mask;
+    the solve's degenerate fallback (focal 1) would miss fx by a third."""
+    from torch_tiny_config import make_points_perspective_v1, perspective_v1_answer
+
+    model = MoGeModel(_config("layer_norm"), "cpu", torch.float32).init_random(seed=0)
+    make_points_perspective_v1(model.module)
+    image = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (*hw, 3)).astype(np.float32))
+    out = model.infer(image, num_tokens=NUM_TOKENS)
+    fx, fy, depth = perspective_v1_answer(*hw)
+    assert bool(out["mask"].all())
+    intr = out["intrinsics"]
+    assert abs(intr[0, 0].item() - fx) <= 1e-3 * fx and abs(intr[1, 1].item() - fy) <= 1e-3 * fy
+    # the bilinear resize to the image clamps at its border: compare inside a 2-pixel margin
+    inner = (slice(2, -2), slice(2, -2))
+    assert ((out["depth"][inner] - depth[inner]).norm() / depth[inner].norm()).item() <= 1e-3

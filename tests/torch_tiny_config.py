@@ -62,6 +62,54 @@ def make_points_perspective(module, z=0.3, tilt=0.5):
     return module
 
 
+def make_points_perspective_v1(module, focal=1.5, z=0.3, tilt=0.5, mask=1.0):
+    """MoGe-1's counterpart of ``make_points_perspective``: set a ``MoGeV1``
+    module's two output blocks (in place) so that its raw point map is
+    (u / focal, v / focal, z + tilt * u) over the view-plane UV and its raw
+    mask is ``mask`` everywhere. With the 'exp' remap that is a surface seen
+    through ``focal`` with shift 0 and depth exp(z + tilt * u): the
+    focal/shift solve has one exact answer, and a focal other than 1 tells
+    it from the solve's degenerate fallback (focal 1, shift 0). The points
+    block's first conv reads the UV channels appended to its input (its
+    last two) at the centre tap into channels u, -u, v, -v, which the
+    block's ReLU keeps as their positive parts; its residual blocks, zeroed,
+    pass them on; its last conv recombines them. Every other weight of both
+    blocks is 0."""
+    import torch
+
+    points, mask_block = module.head.output_block
+    conv_in, conv_out = points[0], points[-1]
+    c = conv_in.weight.shape[1] - 2
+    k = conv_out.weight.shape[-1] // 2  # the centre tap of a 1x1 or 3x3 output conv
+    with torch.no_grad():
+        for p in (*points.parameters(), *mask_block.parameters()):
+            p.zero_()
+        for ch, (src, sign) in enumerate(((c, 1.0), (c, -1.0), (c + 1, 1.0), (c + 1, -1.0))):
+            conv_in.weight[ch, src, 1, 1] = sign
+        w = conv_out.weight
+        w[0, 0, k, k], w[0, 1, k, k] = 1.0 / focal, -1.0 / focal
+        w[1, 2, k, k], w[1, 3, k, k] = 1.0 / focal, -1.0 / focal
+        w[2, 0, k, k], w[2, 1, k, k] = tilt, -tilt
+        conv_out.bias.copy_(torch.tensor([0.0, 0.0, z]))
+        mask_block[-1].bias.fill_(mask)
+    return module
+
+
+def perspective_v1_answer(h, w, focal=1.5, z=0.3, tilt=0.5):
+    """What ``infer`` should find for an (h, w) image on a module set by
+    ``make_points_perspective_v1``: fx and fy of the intrinsics (normalised by
+    the image width and height) and the depth map (h, w), exp(z + tilt * u)."""
+    import torch
+
+    from moge_tpu_torch.ops.geometry import normalized_view_plane_uv
+
+    aspect = w / h
+    fx = focal / 2 * (1 + aspect ** 2) ** 0.5 / aspect
+    fy = focal / 2 * (1 + aspect ** 2) ** 0.5
+    u = normalized_view_plane_uv(w, h, aspect)[..., 0]
+    return fx, fy, torch.exp(z + tilt * u)
+
+
 def _to_torch(sd):
     import numpy as np
     import torch
