@@ -7,14 +7,18 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 1. device: require CUDA, print the card's name and power limit, disable TF32;
 2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes plus ragged edges, with errors and median times: K1, K2
+   paths' shapes plus ragged edges, with errors and median times: K1 (also
+   by device time, beside F.layer_norm's), K2
    (and its logsumexp; B = 1 and 8 at the ViT token counts, times by CUDA
    events and by device time, then kv_valid at the bf16 kernel's key-tile
    edges), K3 at every conv shape of a ViT-L ``infer`` (each
    launch's variant checked, times by CUDA events and by device time, and
    K3 ms per infer against F.conv2d by device time), K3-grouped at the batched decoder heads' shapes (G=3,
    B0 = 1 and 8, bf16 and fp32, the grouped up2 form), then the flash
-   backward K2b-dq/K2b-dkv (bf16 and fp32) and the dense align objective K4
+   backward K2b-dq/K2b-dkv (bf16 and fp32, each launch's variant checked,
+   two calls bit-identical; bf16 also by device time, and the whole
+   backward, delta + K2b-dq + K2b-dkv, against SDPA's flash backward) and
+   the dense align objective K4
    at the v2 loss shapes; with each kernel's bound (the least time the card
    could take, from the bytes it must move and its operations at the peak
    rate of their type) and the time of one PyTorch call that computes the
@@ -54,8 +58,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
     and random draws: loss, every alignment solve and the gradients.
 
 On every counted run of the paths below, each K3 and K3-grouped launch must
-have taken a pipelined wgmma variant (``conv.VARIANT_LAUNCHES``) and each K2
-launch the wgmma kernel (``attention.VARIANT_LAUNCHES``).
+have taken a pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
+launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
+K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``).
 
 Prints a JSON line with the kernels' numbers, the inference, batched,
 serving and training numbers, the card's name and power limit, and last
@@ -66,11 +71,12 @@ forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
 ``serve``, one step for ``train``, the three tools' measurements for
 ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
 reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
-medians by CUDA events around each call for every kernel, and K2, K3,
-K3-grouped and T1 add ``device_ms``, ``plain_device_ms`` and
-``library_device_ms``, the same calls' device time from torch.profiler;
-``variants_by_path`` (K2, K3, K3-grouped) gives each path's launches per run
-by kernel variant;
+medians by CUDA events around each call for every kernel, and K1, K2,
+K2b-dq, K2b-dkv, K3, K3-grouped and T1 add ``device_ms``,
+``plain_device_ms`` and ``library_device_ms``, the same calls' device time
+from torch.profiler (K2b's ``backward_device_ms``: the whole backward);
+``variants_by_path`` (K2, K2b-dq and K2b-dkv together, K3, K3-grouped)
+gives each path's launches per run by kernel variant;
 ``infer_launches`` is the count per ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
 beside it, it exits nonzero and prints no result.
 """
@@ -274,7 +280,7 @@ def phase_kernels():
 
     # K1 LayerNorm: tolerance one bf16 ulp at the output's largest magnitude
     k1 = []
-    for m, d in ((1370, 1024), (3601, 1024), (37, 192)):
+    for m, d in ((1370, 1024), (3601, 1024), (8 * 3601, 1024), (37, 192)):  # ViT-L rows at batch 1 and 8
         x = randn(m, d, scale=3.0) + 1.0
         s = torch.randn(d, generator=gen, device=dev)
         b = torch.randn(d, generator=gen, device=dev)
@@ -282,15 +288,14 @@ def phase_kernels():
         want = norm.layer_norm_plain(x.float(), s, b)
         err = (got - want).abs().max().item()
         tol = want.abs().max().item() * 2.0 ** -8
-        ms = cuda_ms(lambda: norm.layer_norm_fp32(x, s, b))
-        plain_ms = cuda_ms(lambda: norm.layer_norm_plain(x, s, b))
-        lib_ms = cuda_ms(library_layer_norm(x, s, b))
+        ms, plain_ms, lib_ms, dev_ms = call_times(lambda: norm.layer_norm_fp32(x, s, b),
+                                                  lambda: norm.layer_norm_plain(x, s, b), library_layer_norm(x, s, b))
         bnd = bound(bytes_moved=2 * m * d * x.element_size() + 2 * d * 4, fp32_instr=4 * m * d)
-        log(f"[K1] M={m} D={d}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.layer_norm {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        log(f"[K1] M={m} D={d}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+            f"{conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'F.layer_norm')}; bound {bnd[0]:.4f} ms ({bnd[1]})")
         if not err <= tol:
             raise AssertionError(f"K1 LayerNorm disagrees at M={m} D={d}: {err} > {tol}")
-        k1.append((err, ms, plain_ms, lib_ms, bnd))
+        k1.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
     results["layer_norm"] = k1
 
     # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor, at the ViT
@@ -443,17 +448,22 @@ def conv_cases(gen):
     return cases
 
 
-VARIANTS_BY_PATH = {}  # path -> the launches per run of each kernel variant (conv: K3 and K3-grouped; attention: K2)
+# path -> the launches per run of each kernel variant (conv: K3 and K3-grouped; attention: K2;
+# attention_bwd: K2b-dq and K2b-dkv together)
+VARIANTS_BY_PATH = {}
 
 
 def check_variants(path: str, label: str, counts: dict) -> dict:
     """Every K3 and K3-grouped launch of a counted run took a pipelined wgmma
-    variant (``conv.VARIANT_LAUNCHES``), and every K2 launch, bf16 on every
-    counted path, the wgmma kernel (``attention.VARIANT_LAUNCHES``); both set
-    to 0 with the other counts. Records the run's variants under ``path``."""
+    variant (``conv.VARIANT_LAUNCHES``), and every K2, K2b-dq and K2b-dkv
+    launch, bf16 on every counted path, the wgmma kernel
+    (``attention.VARIANT_LAUNCHES``, ``attention.BWD_VARIANT_LAUNCHES``); all
+    set to 0 with the other counts. Records the run's variants under
+    ``path``."""
     from moge_tpu_torch.ops import attention, conv
 
-    variants = {"conv": dict(conv.VARIANT_LAUNCHES), "attention": dict(attention.VARIANT_LAUNCHES)}
+    variants = {"conv": dict(conv.VARIANT_LAUNCHES), "attention": dict(attention.VARIANT_LAUNCHES),
+                "attention_bwd": dict(attention.BWD_VARIANT_LAUNCHES)}
     pipelined = sum(variants["conv"][k] for k in conv.PIPELINED)
     if pipelined != counts["conv3x3"] + counts["conv3x3_grouped"] or pipelined != sum(variants["conv"].values()):
         raise AssertionError(f"{label}: K3 launches by variant {variants['conv']}, counts {counts['conv3x3']} + "
@@ -461,6 +471,11 @@ def check_variants(path: str, label: str, counts: dict) -> dict:
     if variants["attention"] != {"wgmma": counts["flash_attention"], "fp32": 0}:
         raise AssertionError(f"{label}: K2 launches by variant {variants['attention']}, count "
                              f"{counts['flash_attention']}: not all on the wgmma kernel")
+    bwd = counts["flash_attention_dq"] + counts["flash_attention_dkv"]
+    if variants["attention_bwd"] != {"wgmma": bwd, "fp32": 0}:
+        raise AssertionError(f"{label}: K2b launches by variant {variants['attention_bwd']}, counts "
+                             f"{counts['flash_attention_dq']} + {counts['flash_attention_dkv']}: not all on the "
+                             f"wgmma kernels")
     VARIANTS_BY_PATH[path] = variants
     return variants
 
@@ -514,10 +529,13 @@ def grouped_cases(gen):
 
 
 def phase_kernels_train():
-    """K2b-dq, K2b-dkv and K4 against their plain versions on the card."""
+    """K2b-dq, K2b-dkv and K4 against their plain versions on the card; K2b
+    bf16 also by device time, with the whole backward (delta + K2b-dq +
+    K2b-dkv) against SDPA's flash backward."""
     import torch
 
     from moge_tpu_torch.ops import alignment, attention
+    from moge_tpu_torch.tools.roofline import device_ms
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -539,15 +557,23 @@ def phase_kernels_train():
             tol = K2B_REL[str(dtype).split(".")[-1]] * max(w.abs().max().item() for w in want)
             err_dq = (dq.float() - want[0]).abs().max().item()
             err_dkv = max((g.float() - w).abs().max().item() for g, w in zip((dk, dv), want[1:]))
-            ms_dq = cuda_ms(lambda: attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid))
-            ms_dkv = cuda_ms(lambda: attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid))
+            before = dict(attention.BWD_VARIANT_LAUNCHES)
+            again = (attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid),
+                     *attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid))
+            variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
+            if {key: c - before[key] for key, c in attention.BWD_VARIANT_LAUNCHES.items()} != \
+                    {key: 2 * (key == variant) for key in before}:
+                raise AssertionError(f"K2b at N={n} {dtype} did not launch the {variant} kernels")
+            if not all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv))):
+                raise AssertionError(f"K2b at N={n} {dtype}: two calls on the same inputs gave other bits")
+            dq_fn = functools.partial(attention.flash_attention_bwd_dq, q, k, v, dout, lse, delta, kv_valid)
+            dkv_fn = functools.partial(attention.flash_attention_bwd_dkv, q, k, v, dout, lse, delta, kv_valid)
             plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
             plain_out = attention.attention_plain(*plain_in, kv_valid)
-            plain_dq = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_in[0], dout, retain_graph=True), 10)
-            plain_dkv = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_in[1:], dout, retain_graph=True), 10)
-            del plain_out, plain_in
+            plain_dq_fn = functools.partial(torch.autograd.grad, plain_out, plain_in[0], dout, retain_graph=True)
+            plain_dkv_fn = functools.partial(torch.autograd.grad, plain_out, plain_in[1:], dout, retain_graph=True)
             # SDPA's flash backward (bf16 only) computes dq, dk and dv in one call
-            lib_ms = cuda_ms(library_sdpa(q, k, v, kv_valid, dout), 10) if dtype == torch.bfloat16 else None
+            lib_fn = library_sdpa(q, k, v, kv_valid, dout) if dtype == torch.bfloat16 else None
             io = 2 * n * 16 * 64 * qkv.element_size()  # one (B, N, H, 64) tensor
             stats = 2 * 2 * 16 * n * 4                 # lse and delta
             bnd_dq = bound(dtype, flops=6 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
@@ -555,16 +581,34 @@ def phase_kernels_train():
             bnd_dkv = bound(dtype, flops=8 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
                             bytes_moved=6 * io + stats)
             label = f"B=2 H=16 N={n} kv_valid={kv_valid} {str(dtype).split('.')[-1]}"
-            log(f"[K2b] {label}: dq max_abs_err {err_dq:.3e}, dk/dv max_abs_err {err_dkv:.3e} (tol {tol:.3e}); "
-                f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms, bound {bnd_dq[0]:.4f} ms ({bnd_dq[1]}); "
-                f"dk/dv kernel {ms_dkv:.4f} ms, plain {plain_dkv:.4f} ms, bound {bnd_dkv[0]:.4f} ms ({bnd_dkv[1]}); "
-                f"SDPA flash backward {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms")
+            if lib_fn is None:  # fp32: CUDA events only, as in PR 2-6
+                ms_dq, ms_dkv = cuda_ms(dq_fn), cuda_ms(dkv_fn)
+                plain_dq, plain_dkv = cuda_ms(plain_dq_fn, 10), cuda_ms(plain_dkv_fn, 10)
+                lib_ms, dev_dq, dev_dkv = None, {}, {}
+                times = f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms; dk/dv kernel {ms_dkv:.4f} ms, " \
+                        f"plain {plain_dkv:.4f} ms"
+            else:  # bf16: events and device time, and the whole backward (delta + dq + dkv) against SDPA's
+                ms_dq, plain_dq, lib_ms, dev_dq = call_times(dq_fn, plain_dq_fn, lib_fn, plain_iters=5)
+                ms_dkv, plain_dkv, _, dev_dkv = call_times(dkv_fn, plain_dkv_fn, lib_fn, plain_iters=5)
+                whole = device_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, dout, kv_valid))
+                bnd_all = bound(dtype, flops=10 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
+                                bytes_moved=8 * io + 2 * 16 * n * 4)
+                dev_dq["backward_device_ms"] = dev_dkv["backward_device_ms"] = whole
+                times = (f"dq {conv_times_text(ms_dq, plain_dq, lib_ms, dev_dq, 'SDPA flash backward')}; dk/dv "
+                         f"{conv_times_text(ms_dkv, plain_dkv, lib_ms, dev_dkv, 'SDPA flash backward')}")
+                log(f"[K2b] {label}: the whole backward (delta + dq + dk/dv) {whole:.4f} ms against SDPA's flash "
+                    f"backward {dev_dq['library_device_ms']:.4f} ms (device time; "
+                    f"{whole / dev_dq['library_device_ms']:.3f}x); its bound {bnd_all[0]:.4f} ms ({bnd_all[1]})")
+            del plain_out, plain_in
+            log(f"[K2b] {label}: dq max_abs_err {err_dq:.3e}, dk/dv max_abs_err {err_dkv:.3e} (tol {tol:.3e}), "
+                f"bit-identical twice; {times}; bound dq {bnd_dq[0]:.4f} ms ({bnd_dq[1]}), dk/dv {bnd_dkv[0]:.4f} ms "
+                f"({bnd_dkv[1]})")
             if not (err_dq <= tol and err_dkv <= tol):
                 raise AssertionError(f"K2b flash backward disagrees at {label}: {err_dq}, {err_dkv} > {tol}")
             if kv_valid < n and (dk[:, kv_valid:].any() or dv[:, kv_valid:].any()):
                 raise AssertionError(f"K2b: masked keys got nonzero dk/dv at {label}")
-            results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq, lib_ms, bnd_dq))
-            results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv, lib_ms, bnd_dkv))
+            results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq, lib_ms, bnd_dq, dev_dq))
+            results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv, lib_ms, bnd_dkv, dev_dkv))
             torch.cuda.empty_cache()
 
     # K4 at the v2 loss shapes (batch 2): rows bounded to ~2^32 pairs for the
@@ -801,6 +845,7 @@ def reset_counts():
     conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = 0
     conv.VARIANT_LAUNCHES.update(dict.fromkeys(conv.VARIANT_LAUNCHES, 0))
     attention.VARIANT_LAUNCHES.update(dict.fromkeys(attention.VARIANT_LAUNCHES, 0))
+    attention.BWD_VARIANT_LAUNCHES.update(dict.fromkeys(attention.BWD_VARIANT_LAUNCHES, 0))
     exp_flash_softmax.LAUNCHES = exp_vpu_ceiling.LAUNCHES = 0
     exp_dense_pallas.LAUNCHES.update(dict.fromkeys(exp_dense_pallas.LAUNCHES, 0))
 
@@ -1203,6 +1248,22 @@ def train_batch(rng, batch: int, hw, label_type_idx: int, device):
             for k, v in out.items()}
 
 
+def train_setup(device):
+    """TRAIN_CONFIG's module (random weights from SEED), optimizer and train
+    state on ``device``: ``(cfg, module, tx, state)``."""
+    import torch
+
+    from moge_tpu_torch.models.v2 import MoGeV2
+    from moge_tpu_torch.train.step import init_train_state
+    from moge_tpu_torch.train.utils import build_optimizer
+
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    with torch.device(device):
+        module = MoGeV2(**cfg["model"]).init_random(seed=SEED)
+    tx = build_optimizer(module, cfg["optimizer"], cfg["lr_scheduler"])
+    return cfg, module, tx, init_train_state(module, tx)
+
+
 def phase_train(card: str):
     """configs/train/v2.json at full width: moge-2-vitl-normal, random weights,
     bf16 compute with fp32 parameters, label type A, batch 2 at 512x512, three
@@ -1210,16 +1271,10 @@ def phase_train(card: str):
     import numpy as np
     import torch
 
-    from moge_tpu_torch.models.v2 import MoGeV2
-    from moge_tpu_torch.train.step import init_train_state, make_grad_step, make_train_step
-    from moge_tpu_torch.train.utils import build_optimizer
+    from moge_tpu_torch.train.step import make_grad_step, make_train_step
 
-    cfg = json.loads(TRAIN_CONFIG.read_text())
     dev = torch.device(DEVICE)
-    with dev:
-        module = MoGeV2(**cfg["model"]).init_random(seed=SEED)
-    tx = build_optimizer(module, cfg["optimizer"], cfg["lr_scheduler"])
-    state = init_train_state(module, tx)
+    cfg, module, tx, state = train_setup(dev)
     label_types = list(cfg["loss"])
     lt_a = label_types.index("A")
     expect = expected_train_launches(cfg["model"], cfg["loss"])
@@ -1419,7 +1474,8 @@ def main() -> int:
         cases = kernel_results[name]
         _, ms, plain_ms, library_ms, (bound_ms, bound_by), *device = cases[REPORT_CASE[name]]
         by_path = {path: {"per_run": per_run[name], "runs": runs} for path, (per_run, runs) in launches.items()}
-        kind = {"flash_attention": "attention", "conv3x3": "conv", "conv3x3_grouped": "conv"}.get(name)
+        kind = {"flash_attention": "attention", "flash_attention_dq": "attention_bwd",
+                "flash_attention_dkv": "attention_bwd", "conv3x3": "conv", "conv3x3_grouped": "conv"}.get(name)
         variants = {"variants_by_path": {p: v[kind] for p, v in VARIANTS_BY_PATH.items()}} if kind else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(p["per_run"] * p["runs"] for p in by_path.values()),

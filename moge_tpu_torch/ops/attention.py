@@ -23,7 +23,10 @@ For bf16, K2 is a Hopper kernel (``wgmma`` on K/V tiles brought by TMA);
 and the three tensor maps) and refuses a view TMA cannot read. Each K2
 launch is also counted under its variant in ``VARIANT_LAUNCHES``:
 ``wgmma`` (bf16) or ``fp32`` (the plain-FMA kernel the fp32 parity checks
-run).
+run). K2b-dq and K2b-dkv are Hopper kernels of the same kind for bf16
+(Q/dO and K/V rings by TMA, P and dS in registers); ``flash_bwd_plan``
+gives their launches, and each K2b launch is counted once more under its
+variant in ``BWD_VARIANT_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "attention_bwd_delta", "flash_attention_qkv", "attention_plain",
-           "flash_plan", "FlashPlan", "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "VARIANT_LAUNCHES"]
+           "flash_plan", "FlashPlan", "flash_bwd_plan", "FlashBwdPlan", "LAUNCHES", "DQ_LAUNCHES",
+           "DKV_LAUNCHES", "VARIANT_LAUNCHES", "BWD_VARIANT_LAUNCHES"]
 
 # kernel launches (never made by the plain versions): K2 by flash_attention_fwd,
 # K2b-dq and K2b-dkv by flash_attention_bwd
@@ -46,6 +50,7 @@ LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 VARIANT_LAUNCHES = {"wgmma": 0, "fp32": 0}  # every K2 launch, counted once more under its variant
+BWD_VARIANT_LAUNCHES = {"wgmma": 0, "fp32": 0}  # every K2b-dq and K2b-dkv launch, the same way
 
 _HEAD_DIM = 64  # every DINOv2 arch of the repo (S/B/L/G/T) has 64-wide heads
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +59,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 9
 # the bf16 kernel's query rows per block (one warpgroup), keys per K/V tile
 # and ring slots, as csrc/flash_fwd.cuh builds it
 Q_ROWS, KEY_TILE, STAGES = 64, 128, 2
+# the bf16 backward kernels' (csrc/flash_attn_bwd.cu) rows per block (query
+# rows for K2b-dq, keys for K2b-dkv), K2b-dq's keys per K/V tile, K2b-dkv's
+# queries per Q/dO tile, and the slots of each ring
+BWD_ROWS, BWD_KEY_TILE, BWD_QUERY_TILE, BWD_STAGES = 64, 64, 64, 2
 _ROW_BYTES = 2 * _HEAD_DIM
 _GRID_YZ = 65535
 
@@ -71,24 +80,88 @@ class FlashPlan(NamedTuple):
     maps: Tuple[Tuple[Tuple[int, int, int, int], Tuple[int, int, int], Tuple[int, int, int, int]], ...]
 
 
+def _tma_check(name: str, t: torch.Tensor):
+    """The byte strides (h, n, b) of a (B, N, H, 64) view; ValueError for a
+    view TMA cannot read."""
+    B, _, H, _ = t.shape
+    sb, sn, sh = (s * t.element_size() for s in t.stride()[:3])
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 or not 0 <= s < 2 ** 40 for s in (sb, sn, sh)):
+        raise ValueError(f"flash_attention kernel reads {name} by TMA: it needs unit-stride rows, byte "
+                         f"strides that are multiples of 16 and a 16-byte aligned base (strides "
+                         f"{t.stride()}, address {t.data_ptr()})")
+    if H > _GRID_YZ or B > _GRID_YZ:
+        raise ValueError(f"flash_attention kernel: H={H} and B={B} must each be at most {_GRID_YZ}")
+    return sh, sn, sb
+
+
+def _tma_map(name: str, t: torch.Tensor, n: int, rows: int):
+    """The tensor map {64, H, n, B} of a (B, N, H, 64) view, boxes of ``rows``
+    rows of one head; ValueError for a view TMA cannot read."""
+    B, _, H, _ = t.shape
+    return (_HEAD_DIM, H, n, B), _tma_check(name, t), (_HEAD_DIM, 1, rows, 1)
+
+
+def _store_check(t: torch.Tensor) -> None:
+    """ValueError for a backward output the bf16 kernels cannot store as bf16 pairs."""
+    if t.stride(-1) != 1 or t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:3]):
+        raise ValueError(f"flash_attention_bwd stores bf16 pairs: an output needs unit-stride rows, even "
+                         f"strides and a 4-byte aligned base (strides {t.stride()}, address {t.data_ptr()})")
+
+
 def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) -> FlashPlan:
     """The bf16 kernel's launch for (B, N, H, 64) q/k/v views (any device:
     it reads shapes, strides and addresses only). Raises ValueError for a
     view TMA cannot read: each row unit-stride, each byte stride a multiple
     of 16, each base address 16-byte aligned."""
     B, Nq, H, _ = q.shape
-    maps = []
-    for name, t, n, rows in (("q", q, Nq, Q_ROWS), ("k", k, kv_valid, KEY_TILE), ("v", v, kv_valid, KEY_TILE)):
-        sb, sn, sh = (s * t.element_size() for s in t.stride()[:3])
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 or not 0 <= s < 2 ** 40 for s in (sb, sn, sh)):
-            raise ValueError(f"flash_attention kernel reads {name} by TMA: it needs unit-stride rows, byte "
-                             f"strides that are multiples of 16 and a 16-byte aligned base (strides "
-                             f"{t.stride()}, address {t.data_ptr()})")
-        maps.append(((_HEAD_DIM, H, n, B), (sh, sn, sb), (_HEAD_DIM, 1, rows, 1)))
-    if H > _GRID_YZ or B > _GRID_YZ:
-        raise ValueError(f"flash_attention kernel: H={H} and B={B} must each be at most {_GRID_YZ}")
+    maps = (_tma_map("q", q, Nq, Q_ROWS), _tma_map("k", k, kv_valid, KEY_TILE), _tma_map("v", v, kv_valid, KEY_TILE))
     smem = Q_ROWS * _ROW_BYTES + 2 * STAGES * KEY_TILE * _ROW_BYTES + 1024  # + slack to align to 1 KB
-    return FlashPlan(KEY_TILE, STAGES, (-(-Nq // Q_ROWS), H, B), smem, tuple(maps))
+    return FlashPlan(KEY_TILE, STAGES, (-(-Nq // Q_ROWS), H, B), smem, maps)
+
+
+class FlashBwdPlan(NamedTuple):
+    """The bf16 K2b-dq and K2b-dkv launches: K2b-dq walks K/V tiles of
+    ``key_tile`` keys, K2b-dkv Q/dO tiles of ``query_tile`` queries, each in
+    rings of ``stages`` slots; each kernel's grid (row tiles, H, B) and
+    dynamic shared memory in bytes; per kernel the TMA tensor maps of q,
+    dout, k and v, as ``FlashPlan.maps`` has them (dims {64, H, N, B} with
+    N = Nq for q and dout, kv_valid for k and v; byte strides; box); and
+    the element strides (b, n, h) through which each given output (dq, dk,
+    dv) is stored, in place."""
+    key_tile: int
+    query_tile: int
+    stages: int
+    grid_dq: Tuple[int, int, int]
+    grid_dkv: Tuple[int, int, int]
+    smem_dq: int
+    smem_dkv: int
+    maps_dq: Tuple[Tuple[Tuple[int, int, int, int], Tuple[int, int, int], Tuple[int, int, int, int]], ...]
+    maps_dkv: Tuple[Tuple[Tuple[int, int, int, int], Tuple[int, int, int], Tuple[int, int, int, int]], ...]
+    stores: Tuple[Tuple[int, int, int], ...]
+
+
+def flash_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, kv_valid: int,
+                   *outs: torch.Tensor) -> FlashBwdPlan:
+    """The bf16 backward kernels' launches for (B, N, H, 64) q/k/v/dout views
+    and the outputs ``outs`` they write (any of dq, dk, dv; any device: it
+    reads shapes, strides and addresses only). Raises ValueError for an
+    input TMA cannot read (as ``flash_plan``) or an output whose rows are
+    not unit-stride bf16 pairs on 4-byte boundaries."""
+    B, Nq, H, _ = q.shape
+    Nkv = k.shape[1]
+    maps = {}
+    for kernel, q_rows, kv_rows in (("dq", BWD_ROWS, BWD_KEY_TILE), ("dkv", BWD_QUERY_TILE, BWD_ROWS)):
+        maps[kernel] = (_tma_map("q", q, Nq, q_rows), _tma_map("dout", dout, Nq, q_rows),
+                        _tma_map("k", k, kv_valid, kv_rows), _tma_map("v", v, kv_valid, kv_rows))
+    for t in outs:
+        _store_check(t)
+    own = BWD_ROWS * _ROW_BYTES  # Q and dO (K2b-dq), K and V (K2b-dkv)
+    smem_dq = 2 * own + 2 * BWD_STAGES * BWD_KEY_TILE * _ROW_BYTES + 1024  # + slack to align to 1 KB
+    stats = 2 * BWD_QUERY_TILE * 4  # a slot's lse and delta
+    smem_dkv = 2 * own + 2 * BWD_STAGES * BWD_QUERY_TILE * _ROW_BYTES + BWD_STAGES * stats + 1024
+    return FlashBwdPlan(BWD_KEY_TILE, BWD_QUERY_TILE, BWD_STAGES, (-(-Nq // BWD_ROWS), H, B),
+                        (-(-Nkv // BWD_ROWS), H, B), smem_dq, smem_dkv, maps["dq"], maps["dkv"],
+                        tuple(tuple(t.stride()[:3]) for t in outs))
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,7 +260,10 @@ def _strides(*ts: torch.Tensor):
 
 
 def _bwd_setup(q, k, v, dout, lse, delta, kv_valid, outs):
-    """Check the backward kernels' operands; allocate missing outputs like their inputs."""
+    """Check the backward kernels' operands (for bf16, also what
+    ``flash_bwd_plan`` refuses; the C side builds the maps); allocate
+    missing outputs like their inputs. Returns the variant the launch takes
+    with the library and the call's argument groups."""
     _check(q, k, v, kv_valid, dout=dout)
     B, Nq, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
@@ -200,23 +276,33 @@ def _bwd_setup(q, k, v, dout, lse, delta, kv_valid, outs):
             raise ValueError(f"flash_attention_bwd {name} must be a unit-stride {tuple(like.shape)} "
                              f"{like.dtype} tensor on {q.device}")
         filled.append(dst)
+    variant = "fp32"
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("dout", dout), ("k", k), ("v", v)):
+            _tma_check(name, t)
+        for t in filled:
+            _store_check(t)
+        variant = "wgmma"
     lib = _build.load("flash_attn_bwd")
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
     dims = (B, H, Nq, k.shape[1], kv_valid)
     tail = (q.shape[-1] ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
-    return lib, head, dims, tail, filled
+    return lib, variant, head, dims, tail, filled
 
 
 def attention_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """delta_i = rowsum(dO_i * O_i) in fp32, (B, H, N): plain PyTorch, as the
-    JAX package computes it in XLA."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    JAX package computes it in XLA. The products are formed in fp32 from the
+    inputs as they are (exact for bf16 and fp32 factors; no fp32 copies of
+    the inputs), then summed per row."""
+    prod = torch.addcmul(out.new_zeros((1,) * out.dim(), dtype=torch.float32), dout, out)
+    return prod.transpose(1, 2).sum(-1).contiguous()
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid: int, dq: Optional[torch.Tensor] = None):
     """dq by kernel K2b-dq (CUDA tensors only)."""
     global DQ_LAUNCHES
-    lib, head, dims, tail, (dq,) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid, [("dq", dq, q)])
+    lib, variant, head, dims, tail, (dq,) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid, [("dq", dq, q)])
     fn = lib.moge_flash_attention_bwd_dq
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                                                                 ctypes.c_void_p]
@@ -225,6 +311,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid: int, dq: Optiona
         rc = fn(*head, dq.data_ptr(), *dims, _strides(q, k, v, dout, dq), *tail)
     _build.check(lib, rc, "flash_attention_bwd_dq")
     DQ_LAUNCHES += 1
+    BWD_VARIANT_LAUNCHES[variant] += 1
     return dq
 
 
@@ -232,8 +319,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid: int, dk: Option
                             dv: Optional[torch.Tensor] = None):
     """(dk, dv) by kernel K2b-dkv (CUDA tensors only); keys at or past kv_valid get zeros."""
     global DKV_LAUNCHES
-    lib, head, dims, tail, (dk, dv) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid,
-                                                 [("dk", dk, k), ("dv", dv, v)])
+    lib, variant, head, dims, tail, (dk, dv) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid,
+                                                          [("dk", dk, k), ("dv", dv, v)])
     fn = lib.moge_flash_attention_bwd_dkv
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                                                                 ctypes.c_void_p]
@@ -242,6 +329,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid: int, dk: Option
         rc = fn(*head, dk.data_ptr(), dv.data_ptr(), *dims, _strides(q, k, v, dout, dk, dv), *tail)
     _build.check(lib, rc, "flash_attention_bwd_dkv")
     DKV_LAUNCHES += 1
+    BWD_VARIANT_LAUNCHES[variant] += 1
     return dk, dv
 
 

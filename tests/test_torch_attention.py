@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -17,6 +18,7 @@ torch.set_num_threads(1)
 
 FP32_TOL = 1e-5          # fp32 on both sides; only the reduction order differs
 FLASH_RTOL, FLASH_ATOL = 2e-3, 2e-4  # the Pallas kernel's own tolerance vs sdpa_xla (tests/test_attention.py)
+BWD_REL = 1e-5  # fp32 gradients relative to the largest gradient: reduction order only (reads < 1e-6)
 
 
 def _qkv(b, nq, nkv, h, seed):
@@ -56,6 +58,45 @@ def test_plain_matches_pallas_flash_interpreted(b, n, h, kv_valid):
                                     q_block=128, k_block=128, kv_valid=kv_valid))
     got, _ = _port(q, k, v, kv_valid)
     np.testing.assert_allclose(got.numpy(), want, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("n,kv_valid", [(130, None), (130, 100), (257, None), (257, 100)])
+def test_plain_backward_matches_pallas_flash_interpreted(n, kv_valid):
+    """The port's backward on the CPU (``flash_attention_bwd``: autograd
+    through the plain version) against ``jax.grad`` through the Pallas flash
+    kernel, whose VJP is the K2b-dq/K2b-dkv Pallas kernels (TPU interpret
+    mode), fp32, 2 heads, ragged N (padded to the 128 block inside the
+    Pallas kernels) and kv_valid; masked keys get exactly zero dk and dv."""
+    q, k, v = _qkv(1, n, n, 2, 11 * n)
+    dout = np.random.default_rng(n).standard_normal(q.shape).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, q_block=128, k_block=128, kv_valid=kv_valid) * dout)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    out, lse = _port(q, k, v, kv_valid)
+    got = attention.flash_attention_bwd(*(torch.from_numpy(t) for t in (q, k, v)), out, lse,
+                                        torch.from_numpy(dout), kv_valid)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= BWD_REL, (name, err)
+    if kv_valid is not None:
+        assert not got[1][:, kv_valid:].any() and not got[2][:, kv_valid:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_delta_is_the_fp32_rowsum(dtype):
+    """delta (B, H, N) = rowsum(dO * O) over the head dim, in fp32, from
+    strided bf16 or fp32 views (the products of two bf16 values are exact)."""
+    rng = np.random.default_rng(5)
+    both = torch.from_numpy(rng.standard_normal((2, 77, 2, 3, 64)).astype(np.float32)).to(dtype)
+    out, dout = both[:, :, 0], both[:, :, 1]
+    got = attention.attention_bwd_delta(out, dout)
+    want = np.einsum("bnhd,bnhd->bhn", out.double().numpy(), dout.double().numpy())
+    assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == (2, 3, 77)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
 
 
 def test_strided_qkv_views_match_contiguous():

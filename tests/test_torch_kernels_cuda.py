@@ -305,17 +305,30 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,h,kv_valid", [(2, 77, 3, None), (1, 130, 2, 100), (1, 64, 1, 1), (2, 200, 2, 130)])
+@pytest.mark.parametrize("b,n,h,kv_valid", [
+    (2, 77, 3, None), (1, 130, 2, 100), (1, 64, 1, 1), (2, 200, 2, 130),
+    # N on and around the bf16 kernels' 64-row and 128-key tile edges, kv_valid a multiple of 64
+    # or 128 and not, and the main path's 1370 tokens
+    (1, 64, 2, None), (1, 65, 2, None), (1, 65, 2, 64), (1, 128, 2, None), (1, 128, 2, 64),
+    (1, 129, 2, None), (1, 129, 2, 128), (1, 129, 2, 65), (1, 300, 2, 192), (1, 300, 2, 256),
+    (2, 1370, 4, None), (1, 1370, 4, 1000), (1, 1370, 2, 1280)])
 def test_flash_attention_backward(dev, dtype, b, n, h, kv_valid):
     """K2b-dq and K2b-dkv against autograd through the plain version (fp32,
     same inputs), reached through the qkv Function as the encoder calls it;
-    keys at or past kv_valid get zero dk and dv."""
+    keys at or past kv_valid get zero dk and dv; a second call gives the same
+    bits; each launch counted under its variant (bf16: the wgmma kernels)."""
     g = _gen(dev, 7 * n + h)
     qkv = torch.randn(b, n, 3, h, 64, device=dev, generator=g).to(dtype).requires_grad_()
     dout = torch.randn(b, n, h, 64, device=dev, generator=g).to(dtype)
     launches = (attention.DQ_LAUNCHES, attention.DKV_LAUNCHES)
+    variants = dict(attention.BWD_VARIANT_LAUNCHES)
     (got,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
     assert (attention.DQ_LAUNCHES - launches[0], attention.DKV_LAUNCHES - launches[1]) == (1, 1)
+    variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    assert {k_: c - variants[k_] for k_, c in attention.BWD_VARIANT_LAUNCHES.items()} == \
+        {k_: 2 * (k_ == variant) for k_ in variants}
+    (again,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
+    assert torch.equal(got, again)
     ref = qkv.detach().float().requires_grad_()
     (want,) = torch.autograd.grad(
         attention.attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], kv_valid), ref, dout.float())
@@ -325,6 +338,26 @@ def test_flash_attention_backward(dev, dtype, b, n, h, kv_valid):
         assert (got[:, :, i].float() - want[:, :, i]).abs().max().item() <= tol, name
     if kv_valid is not None:
         assert not got[:, kv_valid:, 1:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nkv,kv_valid", [(77, 200, 150), (200, 77, 77), (130, 300, 129)])
+def test_flash_attention_backward_cross_length(dev, dtype, nq, nkv, kv_valid):
+    """``flash_attention_bwd`` with Nq != Nkv, contiguous q and strided k/v,
+    against autograd through the plain version."""
+    g = _gen(dev, nq * nkv)
+    q = torch.randn(2, nq, 3, 64, device=dev, generator=g).to(dtype)
+    kv = torch.randn(2, nkv, 2, 3, 64, device=dev, generator=g).to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    dout = torch.randn(2, nq, 3, 64, device=dev, generator=g).to(dtype)
+    out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+    got = attention.flash_attention_bwd(q, k, v, out, lse, dout, kv_valid)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention.attention_plain(*leaves, kv_valid), leaves, dout.float())
+    tol = (K2B_FP32_REL if dtype == torch.float32 else K2B_BF16_REL) * max(w.abs().max().item() for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert (a.float() - w).abs().max().item() <= tol, name
+    assert not got[1][:, kv_valid:].any() and not got[2][:, kv_valid:].any()
 
 
 @pytest.mark.parametrize("r,length,per_term", [(3, 108, False), (5, 1000, False), (2, 1729, True),
