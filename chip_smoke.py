@@ -8,7 +8,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes plus ragged edges, with errors and median times: K1 (also
-   by device time, beside F.layer_norm's), K2
+   by device time, beside F.layer_norm's, and at M = 1370 the host's time
+   per call beside F.layer_norm's; each launch's variant checked: vec16 at
+   the ViT rows, scalar on a view with a storage offset), K2
    (and its logsumexp; B = 1 and 8 at the ViT token counts, times by CUDA
    events and by device time, then kv_valid at the bf16 kernel's key-tile
    edges), K3 at every conv shape of a ViT-L ``infer`` (each
@@ -27,8 +29,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    forward, N = 3601 and a ragged 1201, and 1216 rows, not a multiple of
    the kernel's key tile; ``base`` at 3601 also by device time beside
    SDPA's), T2 (the FP32-pipe ceiling loop,
-   both kinds) and T3-T6 (four layouts of K4's objective, at the
-   ``patch_16`` and ``global`` solve shapes) against their plain versions,
+   both kinds) and T3-T6 (four layouts of K4's objective, at the three
+   ``SHAPES`` of the loss's solves; T6 also by device time) against their
+   plain versions,
    then the three probe tools' measurements at their default shapes (the
    ``probes`` path, counted);
 4. inference at full width: ``moge-2-vitl-normal`` with random weights from
@@ -57,8 +60,9 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
     (kernels) against the CPU (plain versions) from the same weights, batch
     and random draws: loss, every alignment solve and the gradients.
 
-On every counted run of the paths below, each K3 and K3-grouped launch must
-have taken a pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
+On every counted run of the paths below, each K1 launch must have taken the
+vec16 variant (``norm.VARIANT_LAUNCHES``), each K3 and K3-grouped launch a
+pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
 launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
 K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``).
 
@@ -74,8 +78,10 @@ reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
 medians by CUDA events around each call for every kernel, and K1, K2,
 K2b-dq, K2b-dkv, K3, K3-grouped and T1 add ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms``, the same calls' device time
-from torch.profiler (K2b's ``backward_device_ms``: the whole backward);
-``variants_by_path`` (K2, K2b-dq and K2b-dkv together, K3, K3-grouped)
+from torch.profiler (K2b's ``backward_device_ms``: the whole backward; T6
+``device_ms`` alone); K1 adds ``host_us``/``library_host_us``, the host's
+time per call; ``variants_by_path`` (K1, K2, K2b-dq and K2b-dkv together,
+K3, K3-grouped)
 gives each path's launches per run by kernel variant;
 ``infer_launches`` is the count per ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
 beside it, it exits nonzero and prints no result.
@@ -267,7 +273,8 @@ def phase_kernels():
     """Each kernel vs its plain version (fp32 from the same bf16 inputs)."""
     import torch
 
-    from moge_tpu_torch.ops import attention, conv, norm
+    from moge_tpu_torch.ops import _build, attention, conv, norm
+    from moge_tpu_torch.tools import roofline
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -278,23 +285,37 @@ def phase_kernels():
 
     results = {}
 
-    # K1 LayerNorm: tolerance one bf16 ulp at the output's largest magnitude
+    # K1 LayerNorm: tolerance one bf16 ulp at the output's largest magnitude; ViT-L rows at batch 1
+    # and 8 and the ViT-T width on 37 rows (vec16), then a view with a storage offset (scalar)
     k1 = []
-    for m, d in ((1370, 1024), (3601, 1024), (8 * 3601, 1024), (37, 192)):  # ViT-L rows at batch 1 and 8
-        x = randn(m, d, scale=3.0) + 1.0
+    for m, d, offset, variant in ((1370, 1024, 0, "vec16"), (3601, 1024, 0, "vec16"),
+                                  (8 * 3601, 1024, 0, "vec16"), (37, 192, 0, "vec16"), (1370, 1024, 1, "scalar")):
+        x = (randn(m * d + offset, scale=3.0) + 1.0)[offset:].view(m, d)
         s = torch.randn(d, generator=gen, device=dev)
         b = torch.randn(d, generator=gen, device=dev)
+        before = dict(norm.VARIANT_LAUNCHES)
         got = norm.layer_norm_fp32(x, s, b).float()
+        took = [k for k, v in norm.VARIANT_LAUNCHES.items() if v != before[k]]
         want = norm.layer_norm_plain(x.float(), s, b)
         err = (got - want).abs().max().item()
         tol = want.abs().max().item() * 2.0 ** -8
         ms, plain_ms, lib_ms, dev_ms = call_times(lambda: norm.layer_norm_fp32(x, s, b),
                                                   lambda: norm.layer_norm_plain(x, s, b), library_layer_norm(x, s, b))
         bnd = bound(bytes_moved=2 * m * d * x.element_size() + 2 * d * 4, fp32_instr=4 * m * d)
-        log(f"[K1] M={m} D={d}: max_abs_err {err:.3e} (tol {tol:.3e}), "
-            f"{conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'F.layer_norm')}; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        line = (f"[K1] M={m} D={d}{f' offset {offset}' if offset else ''} ({took}, "
+                f"{norm.ln_plan(m, d, x.dtype, x.data_ptr(), _build.sm_count(dev))}): max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'F.layer_norm')}; "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if m == 1370 and not offset:  # the host's way to the launch, beside the library call's
+            host = {"host_us": roofline.host_us(lambda: norm.layer_norm_fp32(x, s, b)),
+                    "library_host_us": roofline.host_us(library_layer_norm(x, s, b))}
+            dev_ms = {**dev_ms, **host}
+            line += f"; host us per call: kernel {host['host_us']:.2f}, F.layer_norm {host['library_host_us']:.2f}"
+        log(line)
         if not err <= tol:
             raise AssertionError(f"K1 LayerNorm disagrees at M={m} D={d}: {err} > {tol}")
+        if took != [variant]:
+            raise AssertionError(f"K1 at M={m} D={d} offset {offset} took {took}, not {variant}")
         k1.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
     results["layer_norm"] = k1
 
@@ -397,7 +418,7 @@ def conv_cases(gen):
     each shape's launches per infer x its time, and their sums."""
     import torch
 
-    from moge_tpu_torch.ops import conv
+    from moge_tpu_torch.ops import _build, conv
 
     dev = torch.device(DEVICE)
     bf16 = torch.bfloat16
@@ -421,7 +442,7 @@ def conv_cases(gen):
         bnd = conv_bound(x, kern, res)
         label = f"{'up2 ' if up2 else ''}{h}x{w} {c}->{o} relu={relu} residual={use_res}"
         log(f"[K3] {label} ({variant[0] if len(variant) == 1 else variant}, "
-            f"{conv._tile_config(1, 1, h, w, c, o, conv._sms(dev))}): max_abs_err {err:.3e} rel {rel:.3e} "
+            f"{conv._tile_config(1, 1, h, w, c, o, _build.sm_count(dev))}): max_abs_err {err:.3e} rel {rel:.3e} "
             f"(tol {K3_REL}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms)}; bound {bnd[0]:.4f} ms ({bnd[1]})")
         if not rel <= K3_REL:
             raise AssertionError(f"K3 conv disagrees at {label}: rel {rel} > {K3_REL}")
@@ -449,21 +470,25 @@ def conv_cases(gen):
 
 
 # path -> the launches per run of each kernel variant (conv: K3 and K3-grouped; attention: K2;
-# attention_bwd: K2b-dq and K2b-dkv together)
+# attention_bwd: K2b-dq and K2b-dkv together; norm: K1)
 VARIANTS_BY_PATH = {}
 
 
 def check_variants(path: str, label: str, counts: dict) -> dict:
-    """Every K3 and K3-grouped launch of a counted run took a pipelined wgmma
-    variant (``conv.VARIANT_LAUNCHES``), and every K2, K2b-dq and K2b-dkv
-    launch, bf16 on every counted path, the wgmma kernel
+    """Every K1 launch of a counted run took the vec16 variant
+    (``norm.VARIANT_LAUNCHES``), every K3 and K3-grouped launch a pipelined
+    wgmma variant (``conv.VARIANT_LAUNCHES``), and every K2, K2b-dq and
+    K2b-dkv launch, bf16 on every counted path, the wgmma kernel
     (``attention.VARIANT_LAUNCHES``, ``attention.BWD_VARIANT_LAUNCHES``); all
     set to 0 with the other counts. Records the run's variants under
     ``path``."""
-    from moge_tpu_torch.ops import attention, conv
+    from moge_tpu_torch.ops import attention, conv, norm
 
     variants = {"conv": dict(conv.VARIANT_LAUNCHES), "attention": dict(attention.VARIANT_LAUNCHES),
-                "attention_bwd": dict(attention.BWD_VARIANT_LAUNCHES)}
+                "attention_bwd": dict(attention.BWD_VARIANT_LAUNCHES), "norm": dict(norm.VARIANT_LAUNCHES)}
+    if variants["norm"] != {"vec16": counts["layer_norm"], "scalar": 0}:
+        raise AssertionError(f"{label}: K1 launches by variant {variants['norm']}, count {counts['layer_norm']}: "
+                             f"not all on the vec16 variant")
     pipelined = sum(variants["conv"][k] for k in conv.PIPELINED)
     if pipelined != counts["conv3x3"] + counts["conv3x3_grouped"] or pipelined != sum(variants["conv"].values()):
         raise AssertionError(f"{label}: K3 launches by variant {variants['conv']}, counts {counts['conv3x3']} + "
@@ -724,11 +749,18 @@ def phase_probes(card: str):
             ms = cuda_ms(lambda: fn(A, wx, wy, 1.0), 5)
             plain_ms = cuda_ms(lambda: plain(A, wx, wy, 1.0), 2, 1)
             bnd = dense.pairs_bound(R, L, variant, CLOCK_HZ)
-            log(f"[T3-T6] {variant} {shape} R={R} L={L}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms "
-                f"({R * L * L / ms / 1e9:.3f} Tpair/s), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            line = (f"[T3-T6] {variant} {shape} R={R} L={L}: max_abs_err {err:.3e} (tol {tol:.3e}), kernel "
+                    f"{ms:.4f} ms ({R * L * L / ms / 1e9:.3f} Tpair/s), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+                    f"({bnd[1]})")
+            case = (err, ms, plain_ms, None, bnd)
+            if variant == "bf16":  # T6 also by device time
+                dev_ms = roofline.device_ms(lambda: fn(A, wx, wy, 1.0))
+                line += f", device {dev_ms:.4f} ms ({bnd[0] / dev_ms:.1%} of the bound)"
+                case += ({"device_ms": dev_ms},)
+            log(line)
             if not err <= tol:
                 raise AssertionError(f"dense_objective_{variant} disagrees at {shape}: {err} > {tol}")
-            results[f"exp_dense_{variant}"].append((err, ms, plain_ms, None, bnd))
+            results[f"exp_dense_{variant}"].append(case)
         del A, wx, wy, wants, got, want
         torch.cuda.empty_cache()
 
@@ -846,6 +878,7 @@ def reset_counts():
     conv.VARIANT_LAUNCHES.update(dict.fromkeys(conv.VARIANT_LAUNCHES, 0))
     attention.VARIANT_LAUNCHES.update(dict.fromkeys(attention.VARIANT_LAUNCHES, 0))
     attention.BWD_VARIANT_LAUNCHES.update(dict.fromkeys(attention.BWD_VARIANT_LAUNCHES, 0))
+    norm.VARIANT_LAUNCHES.update(dict.fromkeys(norm.VARIANT_LAUNCHES, 0))
     exp_flash_softmax.LAUNCHES = exp_vpu_ceiling.LAUNCHES = 0
     exp_dense_pallas.LAUNCHES.update(dict.fromkeys(exp_dense_pallas.LAUNCHES, 0))
 
@@ -1475,7 +1508,8 @@ def main() -> int:
         _, ms, plain_ms, library_ms, (bound_ms, bound_by), *device = cases[REPORT_CASE[name]]
         by_path = {path: {"per_run": per_run[name], "runs": runs} for path, (per_run, runs) in launches.items()}
         kind = {"flash_attention": "attention", "flash_attention_dq": "attention_bwd",
-                "flash_attention_dkv": "attention_bwd", "conv3x3": "conv", "conv3x3_grouped": "conv"}.get(name)
+                "flash_attention_dkv": "attention_bwd", "conv3x3": "conv", "conv3x3_grouped": "conv",
+                "layer_norm": "norm"}.get(name)
         variants = {"variants_by_path": {p: v[kind] for p, v in VARIANTS_BY_PATH.items()}} if kind else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(p["per_run"] * p["runs"] for p in by_path.values()),

@@ -11,6 +11,7 @@ nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -82,6 +83,12 @@ def build_all() -> Dict[str, float]:
     names = [src.stem for src in sorted(CSRC.glob("*.cu"))]
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(zip(names, pool.map(timed, names)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -97,12 +97,6 @@ def _tile_config(G: int, B0: int, H: int, W: int, C: int, O: int, sms: int, alig
     return ConvTile(64, bn, copy)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    """Streaming multiprocessors of the card."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _alignment(*tensors) -> int:
     """The largest power of two up to 16 that divides every tensor's address."""
     align = 16
@@ -175,7 +169,8 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
         fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     if x.dtype == torch.bfloat16:
-        tile = _tile_config(G or 1, B // (G or 1), H, W, C, O, _sms(x.device), _alignment(x, kernel, residual, y))
+        tile = _tile_config(G or 1, B // (G or 1), H, W, C, O, _build.sm_count(x.device),
+                            _alignment(x, kernel, residual, y))
         variant = tile.variant
     else:
         tile, variant = (0, 0, 0), "fp32"

@@ -1,9 +1,10 @@
-"""K2, K2b, T1, ViT-L ``infer`` and the ViT-L train step of one checkout of
-the port on one CUDA GPU, so that two checkouts (a parent commit and a
-change) can be run in turns on one card and compared by the same measures.
+"""K2, K2b, T1, K1, T6, ViT-L ``infer`` and the ViT-L train step of one
+checkout of the port on one CUDA GPU, so that two checkouts (a parent commit
+and a change) can be run in turns on one card and compared by the same
+measures.
 
     python3 moge_tpu_torch/tools/attention_compare.py [--root DIR] [--label NAME]
-        [--parts k2 t1 infer k2b train] [--tokens 1369 3600] [--batch 1 8] [--repeats 5]
+        [--parts k2 t1 infer k2b train k1 t6] [--tokens 1369 3600] [--batch 1 8] [--repeats 5]
 
 ``--root`` is the checkout whose ``moge_tpu_torch`` is timed (default: the
 one this file lies in); the timing code is this file's own (``roofline.py``
@@ -29,6 +30,13 @@ the measurements (default: all):
   ``flash_attention_bwd`` (delta + K2b-dq + K2b-dkv), K2b-dq and K2b-dkv
   alone, beside SDPA's flash backward (dq, dk and dv in one call) on the
   same inputs.
+- ``k1``: K1 (``layer_norm_fp32``), bf16, D = 1024, at M = 1370, 3601 and
+  28808 (ViT-L rows at 1369 and 3600 tokens, batch 1, and 3600 tokens,
+  batch 8) by device time beside ``F.layer_norm`` in bf16; at M = 1370 also
+  the CUDA-event median per call (``chip_smoke.cuda_ms``, host and device
+  together) and the host's time per call (``roofline.host_us``) of both.
+- ``t6``: T6 (``exp_dense_pallas.dense_objective_bf16``, the checkout's
+  default tile) by device time at the tool's three ``SHAPES``.
 - ``train``: ``chip_smoke.py``'s train path (``train_setup``: ViT-L from
   ``configs/train/v2.json``, random weights from seed 0, bf16 compute; batch
   2 at ``TRAIN_HW``, at each of ``TRAIN_TOKENS``): the host clock's median of
@@ -55,7 +63,7 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
-PARTS = ("k2", "t1", "infer", "k2b", "train")
+PARTS = ("k2", "t1", "infer", "k2b", "train", "k1", "t6")
 
 
 def _roofline():
@@ -202,6 +210,43 @@ def main(argv=None) -> None:
                   f"{row['dq']:.4f}, dkv {row['dkv']:.4f}; SDPA flash backward {row['sdpa_bwd']:.4f} ({card})",
                   flush=True)
             del qkv, q, k, v, dout, o, lse, delta
+        torch.cuda.empty_cache()
+
+    if "k1" in args.parts:
+        import torch.nn.functional as F
+
+        from moge_tpu_torch.ops import norm
+
+        smoke = _load("attention_compare_chip_smoke", HERE.parent.parent / "chip_smoke.py")
+        out["k1"] = {}
+        for m in (1370, 3601, 28808):
+            x = (torch.randn(m, 1024, generator=gen, device="cuda") * 3 + 1).to(torch.bfloat16)
+            s, b = torch.randn(1024, generator=gen, device="cuda"), torch.randn(1024, generator=gen, device="cuda")
+            sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+            kernel = lambda: norm.layer_norm_fp32(x, s, b)  # noqa: E731
+            library = lambda: F.layer_norm(x, (1024,), sb, bb, 1e-6)  # noqa: E731
+            row = {"device_ms": roofline.device_ms(kernel), "library_device_ms": roofline.device_ms(library)}
+            text = f"device {row['device_ms']:.4f} ms, F.layer_norm {row['library_device_ms']:.4f} ms"
+            if m == 1370:
+                row.update(events_ms=smoke.cuda_ms(kernel), library_events_ms=smoke.cuda_ms(library),
+                           host_us=roofline.host_us(kernel), library_host_us=roofline.host_us(library))
+                text += (f"; events {row['events_ms']:.4f} ms, F.layer_norm {row['library_events_ms']:.4f} ms; host "
+                         f"us per call {row['host_us']:.2f}, F.layer_norm {row['library_host_us']:.2f}")
+            out["k1"][f"M={m}"] = row
+            print(f"[{label}] K1 bf16 M={m} D=1024: {text} ({card})", flush=True)
+            del x
+
+    if "t6" in args.parts:
+        from moge_tpu_torch.tools import exp_dense_pallas as dense
+
+        out["t6_device_ms"] = {}
+        for shape, (R, L) in dense.SHAPES.items():
+            _, _, _, A, wx, wy = dense.make_problem(R, L, "cuda")
+            ms = roofline.device_ms(lambda: dense.dense_objective_bf16(A, wx, wy, 1.0))
+            out["t6_device_ms"][shape] = ms
+            print(f"[{label}] T6 {shape} R={R} L={L} (tile {dense.VARIANTS['bf16'][1]}): device {ms:.4f} ms ({card})",
+                  flush=True)
+            del A, wx, wy
         torch.cuda.empty_cache()
 
     if "train" in args.parts:

@@ -13,7 +13,8 @@ candidates, at the v2 loss's solve shapes (``SHAPES``), by the kernels of
 - ``dense_objective_v1_unroll`` (T4): v1 with the term loop unrolled;
 - ``dense_objective_v2`` (T5): each thread owns candidates and sums their
   terms serially (K4's layout), several rows per block;
-- ``dense_objective_bf16`` (T6): v1 with bf16x2 pair math and fp32 sums.
+- ``dense_objective_bf16`` (T6): candidate-major, bf16x2 pair math (two
+  terms per instruction), the fp32 sums on the tensor cores.
 
 For each shape it checks the v1 solve against the port's truncated solve
 ``ops.alignment._align_trunc_dense`` (which runs K4) and prints both, and the
@@ -41,12 +42,14 @@ __all__ = ["dense_objective_v1", "dense_objective_v1_unroll", "dense_objective_v
 
 # (R, L): rows x candidate/term length of the v2 loss's solves, as the TPU probe chunks them
 SHAPES = {"global": (606, 6912), "patch_4": (2427, 1728), "patch_16": (4096, 432)}
-# variant -> (kernel code, default tile, compile-time tiles); v1/v1_unroll/bf16: candidates per warp;
-# v2: 10 * rows per block + candidates per thread
+# variant -> (kernel code, default tile, compile-time tiles); v1/v1_unroll: candidates per warp;
+# v2: 10 * rows per block + candidates per thread; bf16: 100 * rows per block + m16 candidate
+# tiles per warp (csrc/exp_dense.cu's MOGE_BF16_CASE list)
 VARIANTS = {"v1": (0, 4, (2, 4, 8)), "v1_unroll": (1, 4, (4, 8)), "v2": (2, 24, (18, 24, 44, 42)),
-            "bf16": (3, 4, (4, 8))}
-# FP32-pipe instructions per pair (csrc/exp_dense.cu)
-INSTRUCTIONS = {"v1": 3.0, "v1_unroll": 3.0, "v2": 3.0, "bf16": 3.5}
+            "bf16": (3, 106, (103, 104, 106, 203, 403))}
+# instructions per pair at the FP32 dispatch rate (csrc/exp_dense.cu); bf16: the count in its
+# SASS: HMUL2, HADD2, LOP3 and HMNMX2 per two pairs, the sums on the tensor cores
+INSTRUCTIONS = {"v1": 3.0, "v1_unroll": 3.0, "v2": 3.0, "bf16": 2.0}
 LAUNCHES = dict.fromkeys(VARIANTS, 0)  # kernel launches per variant (never by the plain versions)
 EPS = 1e-7
 # a layout against its plain version (PLAINS), max |difference| over max |F|:
@@ -136,8 +139,8 @@ def dense_objective_v2(A, wx, wy, t: float, tile=None):
 
 
 def dense_objective_bf16(A, wx, wy, t: float, tile=None):
-    """T6: T3 with the pair math in bf16 (inputs rounded to bf16), fp32 sums.
-    CPU tensors run ``dense_objective_bf16_plain``."""
+    """T6: candidate-major, the pair math in bf16x2 (inputs rounded to bf16),
+    fp32 sums on the tensor cores. CPU tensors run ``dense_objective_bf16_plain``."""
     return _dense("bf16", A, wx, wy, t, tile)
 
 

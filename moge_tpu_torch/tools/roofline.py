@@ -10,6 +10,7 @@ FP32 instruction per lane per clock (an FFMA counts 2 flops: 67 TFLOP/s at
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import time
 from typing import Callable, Dict, Tuple
@@ -113,6 +114,25 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3, window
     if not per_call:
         raise RuntimeError(f"torch.profiler recorded no kernel in {2 * windows} traces of {iters} calls")
     return sorted(per_call)[len(per_call) // 2]
+
+
+def host_us(fn: Callable[[], object], calls: int = 200, reps: int = 21) -> float:
+    """The host's time (us) per call of ``fn`` on the card: the host clock
+    around ``calls`` back-to-back calls launched after a synchronize and timed
+    before the next one (fewer calls than the launch queue holds, so the
+    host does not wait for the card where a call's device time is below its
+    host time), median of ``reps``."""
+    for _ in range(calls // 2):
+        fn()
+    per_call = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
 
 
 def interleaved_ms(runs: Dict[str, Callable[[], object]], device: torch.device, rounds: int, calls: int = 1,

@@ -43,19 +43,75 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d", [(37, 192), (5, 1000), (130, 2048)])
-def test_layer_norm(dev, dtype, m, d):
-    g = _gen(dev, m + d)
-    x = (torch.randn(m, d, device=dev, generator=g) * 3 + 1).to(dtype)
-    s, b = torch.randn(d, device=dev, generator=g), torch.randn(d, device=dev, generator=g)
+def _check_layer_norm(x, s, b, variant, slack=0.0):
+    """K1 against its plain version, the launch counted under ``variant``:
+    fp32 to FP32_TOL; bf16 within one bf16 ulp of the plain version's fp32
+    result (one rounding), plus ``slack`` absolute."""
+    before = dict(norm.VARIANT_LAUNCHES)
     got = norm.layer_norm_fp32(x, s, b).float()
+    assert {k: n - before[k] for k, n in norm.VARIANT_LAUNCHES.items()} == {k: int(k == variant) for k in before}
     want = norm.layer_norm_plain(x.float(), s, b)
-    if dtype == torch.float32:
+    if x.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
     else:  # one bf16 rounding of the fp32 result
         ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-        assert bool(((got - want).abs() <= ulp).all())
+        assert bool(((got - want).abs() <= ulp + slack).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(37, 192), (5, 1000), (130, 2048)])
+def test_layer_norm(dev, dtype, m, d):
+    """Aligned rows with D a multiple of 16 bytes (D = 1000 too): the vec16 variant."""
+    g = _gen(dev, m + d)
+    x = (torch.randn(m, d, device=dev, generator=g) * 3 + 1).to(dtype)
+    s, b = torch.randn(d, device=dev, generator=g), torch.randn(d, device=dev, generator=g)
+    _check_layer_norm(x, s, b, "vec16")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [192, 384, 1024, 1536, 2048])
+@pytest.mark.parametrize("m", [1, 1370, 28808])
+def test_layer_norm_vit_widths(dev, dtype, m, d):
+    """The ViT widths at one row, the ViT-L rows at batch 1 and batch 8 at
+    3600 tokens: the vec16 variant. bf16: one ulp of the plain version's
+    fp32 result plus FP32_TOL, the fp32 results' own difference (statistics
+    summed in another order), which one ulp of an output within ~1e-5 of 0
+    cannot hold: millions of outputs hold a few such."""
+    g = _gen(dev, m + d)
+    x = (torch.randn(m, d, device=dev, generator=g) * 3 + 1).to(dtype)
+    s, b = torch.randn(d, device=dev, generator=g), torch.randn(d, device=dev, generator=g)
+    _check_layer_norm(x, s, b, "vec16", FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,offset", [(1370, 1024, 1), (37, 192, 1), (130, 2048, 3), (5, 1002, 0),
+                                        (1370, 1001, 0)])
+def test_layer_norm_scalar_variant(dev, dtype, m, d, offset):
+    """A contiguous view with a storage offset (not 16-byte aligned), or D
+    not a multiple of 16 bytes: the scalar variant (bf16 as in
+    ``test_layer_norm_vit_widths``)."""
+    g = _gen(dev, m + d + offset)
+    x = (torch.randn(m * d + offset, device=dev, generator=g) * 3 + 1).to(dtype)[offset:].view(m, d)
+    s, b = torch.randn(d, device=dev, generator=g), torch.randn(d, device=dev, generator=g)
+    _check_layer_norm(x, s, b, "scalar", FP32_TOL)
+
+
+def test_layer_norm_launches_directly_without_grad_and_through_autograd_with_it(dev):
+    """No gradient needed (no_grad, or no input requiring one): the kernel
+    without the autograd Function; else the Function, whose backward is the
+    plain version's VJP."""
+    g = _gen(dev, 5)
+    x = torch.randn(64, 384, device=dev, generator=g).to(torch.bfloat16)
+    s, b = torch.randn(384, device=dev, generator=g), torch.randn(384, device=dev, generator=g)
+    assert norm.layer_norm_fp32(x, s, b).grad_fn is None
+    s.requires_grad_()
+    with torch.no_grad():
+        assert norm.layer_norm_fp32(x, s, b).grad_fn is None
+    y = norm.layer_norm_fp32(x, s, b)
+    assert y.grad_fn is not None
+    (gs,) = torch.autograd.grad(y.float().sum(), s)
+    (want,) = torch.autograd.grad(norm.layer_norm_plain(x, s, b).float().sum(), s)
+    torch.testing.assert_close(gs, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -232,6 +288,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         norm.layer_norm_fp32(torch.randn(3, 4096, device=dev), torch.ones(4096, device=dev),
                              torch.zeros(4096, device=dev))
+    with pytest.raises(ValueError):  # a strided input
+        norm.layer_norm_fp32(torch.randn(8, 6, device=dev).t(), torch.ones(8, device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(ValueError):  # a bf16 scale
+        norm.layer_norm_fp32(torch.randn(3, 8, device=dev), torch.ones(8, device=dev, dtype=torch.bfloat16),
+                             torch.zeros(8, device=dev))
+    with pytest.raises(TypeError):
+        norm.layer_norm_fp32(torch.randn(3, 8, device=dev).half(), torch.ones(8, device=dev),
+                             torch.zeros(8, device=dev))
     with pytest.raises(ValueError):  # 4 batch entries, 3 weight groups
         conv.conv3x3_replicate(x, torch.randn(3, 3, 3, 8, 4, device=dev), torch.zeros(3, 4, device=dev))
     with pytest.raises(ValueError):  # a shared bias for grouped weights
@@ -443,7 +507,7 @@ def test_vpu_ceiling(dev, kind, shape, iters):
 
 
 @pytest.mark.parametrize("variant", ["v1", "v1_unroll", "v2", "bf16"])
-@pytest.mark.parametrize("r,length", [(5, 40), (3, 2049), (7, 300), (1, 1), (9, 4096)])
+@pytest.mark.parametrize("r,length", [(5, 40), (3, 2049), (7, 300), (1, 1), (9, 4096), (6, 4097)])
 def test_dense_layouts(dev, variant, r, length):
     from moge_tpu_torch.tools import exp_dense_pallas as dense
 
