@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, serving, training and probes on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, serving, panorama, eval, training and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -11,11 +11,14 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    by device time, beside F.layer_norm's, and at M = 1370 the host's time
    per call beside F.layer_norm's; each launch's variant checked: vec16 at
    the ViT rows, scalar on a view with a storage offset), K2
-   (and its logsumexp; B = 1 and 8 at the ViT token counts, times by CUDA
-   events and by device time, then kv_valid at the bf16 kernel's key-tile
-   edges), K3 at every conv shape of a ViT-L ``infer`` (each
+   (and its logsumexp; B = 1 and 8 at the ViT token counts, B = 12 at the
+   panorama's and B = 1 at eval's, times by CUDA events and by device time,
+   then kv_valid at the bf16 kernel's key-tile edges), K3 at every conv
+   shape of the ViT-L forwards of ``infer`` (batch 1, 1369 tokens), the
+   panorama (batch 12, 3600 tokens) and eval (480x640, 3600 tokens) (each
    launch's variant checked, times by CUDA events and by device time, and
-   K3 ms per infer against F.conv2d by device time), K3-grouped at the batched decoder heads' shapes (G=3,
+   per path K3 ms per forward against F.conv2d by device time; K1 also at
+   the rows of those forwards), K3-grouped at the batched decoder heads' shapes (G=3,
    B0 = 1 and 8, bf16 and fp32, the grouped up2 form), then the flash
    backward K2b-dq/K2b-dkv (bf16 and fp32, each launch's variant checked,
    two calls bit-identical; bf16 also by device time, and the whole
@@ -51,6 +54,19 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    counters per forward, each request's focal, shift and depth held to the
    injected ones and to a CPU solve of the card's raw points; then a ViT-S
    MoGe-1 (same head) forward, bf16 on the card against fp32 on the CPU;
+8b. panorama: a seeded 960x1920 uint8 image through ``infer_panorama``
+   (12 icosahedral views at 512^2, one ``moge-2-vitl-normal`` bf16 forward
+   at 3600 tokens, the CG merge at 1920x960 on the card), a warm-up and a
+   run, launch counters per run, wall time per stage and per merge level;
+   the split on the card against the CPU, the 12-view forward (with the
+   model's own heads) against each view's batch-1 forward, a known field
+   recovered, CG on the card against LSMR on the host and against CG on
+   the CPU;
+8c. eval: a 4-sample synthetic benchmark at 480x640 written by the port's
+   codecs, through the ``eval_baseline`` command and the port's MoGe
+   adapter (ViT-L bf16), launch counters per sample, every metric finite,
+   every solve on the card, ``compute_metrics`` on the card against the
+   CPU's;
 9. training at full width: ``configs/train/v2.json`` (model, optimizer, LR
    schedule, label type A losses), random weights from a seed, bf16 compute
    with fp32 parameters, batch 2 at 512x512, three ``make_train_step`` steps
@@ -67,13 +83,13 @@ launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
 K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``).
 
 Prints a JSON line with the kernels' numbers, the inference, batched,
-serving and training numbers, the card's name and power limit, and last
+serving, panorama, eval and training numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is its count
 summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
-``serve``, one step for ``train``, the three tools' measurements for
-``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
+``serve``, one 12-view panorama for ``panorama``, one sample for ``eval``,
+one step for ``train``, the three tools' measurements for ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
 reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
 medians by CUDA events around each call for every kernel, and K1, K2,
 K2b-dq, K2b-dkv, K3, K3-grouped and T1 add ``device_ms``,
@@ -144,6 +160,34 @@ MOGE1_FOCAL = 1.5
 MOGE1_FOCAL_RTOL = 1e-2
 MOGE1_DEPTH_RTOL = 1e-2
 MOGE1_SOLVE_RTOL = 1e-3
+# panorama: a 960x1920 equirectangular image, the 12 views at 512^2 through one
+# ViT-L infer at resolution level 9 (3600 tokens), the CG merge at 1920x960 on
+# the card; a warm-up run, then the run. Its points head is a known
+# perspective and its mask head a constant logit, so that the views' masks
+# are whole (random weights give a noise mask of ~9k pieces, each its own
+# gauge, on which no two solvers agree)
+PANO_HW = (960, 1920)
+PANO_SPLIT = 512
+PANO_MERGE = (1920, 960)
+PANO_LEVEL = 9
+PANO_RUNS = 2
+PANO_MASK_LOGIT = 3.0
+PANO_SPLIT_LEVELS = 1  # card vs CPU split: uint8 levels (fp32 gathers, one rounding)
+# known-field recovery after the median-scale gauge: tests/test_panorama.py's bounds
+PANO_FIELD_MEDIAN, PANO_FIELD_MEAN = 0.02, 0.05
+# CG vs LSMR: tests/test_panorama.py::test_merge_cg_matches_lsmr's bounds, at its
+# size (views at 48^2, blocks knocked out, merged at 128x64), where both solvers
+# converge. At 512x256 neither does on that field (CG's 300 iterations end 0.8%,
+# LSMR at atol 1e-5 0.4% from an fp64 solve, median), and the JAX package's own
+# pair parts by 1.1% median, 8% max (CPU runs against an fp64 CG solve)
+PANO_CG_LSMR_SIZE, PANO_CG_LSMR_VIEWS = (128, 64), 48
+PANO_CG_LSMR_MEDIAN, PANO_CG_LSMR_MAX = 1e-3, 2e-2
+PANO_CG_CARD_CPU = 1e-4  # CG on the card vs on the CPU: dot products summed in another order
+# eval: a synthetic benchmark of EVAL_SAMPLES samples at EVAL_HW written by the
+# port's codecs, evaluated through the port's MoGe adapter (ViT-L, bf16)
+EVAL_HW = (480, 640)
+EVAL_SAMPLES = 4
+EVAL_RTOL = 1e-5  # compute_metrics, card vs CPU on the same predictions
 
 
 def log(*args):
@@ -285,11 +329,18 @@ def phase_kernels():
 
     results = {}
 
+    # the (batch, tokens) of the ViT-L forwards of the panorama and eval paths
+    paths = {path: (batch, gh * gw + 1) for path, (batch, (gh, gw)) in path_grids().items() if path != "infer"}
+    (pano_b, pano_n), (eval_b, eval_n) = paths["panorama"], paths["eval"]
+
     # K1 LayerNorm: tolerance one bf16 ulp at the output's largest magnitude; ViT-L rows at batch 1
-    # and 8 and the ViT-T width on 37 rows (vec16), then a view with a storage offset (scalar)
+    # and 8, those of the panorama's 12 views and of eval, and the ViT-T width on 37 rows (vec16),
+    # then a view with a storage offset (scalar)
     k1 = []
     for m, d, offset, variant in ((1370, 1024, 0, "vec16"), (3601, 1024, 0, "vec16"),
-                                  (8 * 3601, 1024, 0, "vec16"), (37, 192, 0, "vec16"), (1370, 1024, 1, "scalar")):
+                                  (8 * 3601, 1024, 0, "vec16"), (pano_b * pano_n, 1024, 0, "vec16"),
+                                  (eval_b * eval_n, 1024, 0, "vec16"), (37, 192, 0, "vec16"),
+                                  (1370, 1024, 1, "scalar")):
         x = (randn(m * d + offset, scale=3.0) + 1.0)[offset:].view(m, d)
         s = torch.randn(d, generator=gen, device=dev)
         b = torch.randn(d, generator=gen, device=dev)
@@ -320,12 +371,14 @@ def phase_kernels():
     results["layer_norm"] = k1
 
     # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor, at the ViT
-    # token counts (batch 1 and 8) with device times, then kv_valid at the bf16 kernel's key-tile
-    # edges (one key, a tile less one, a tile, a tile and one) for the errors alone
+    # token counts (batch 1 and 8, the panorama's 12 views, eval) with device times, then kv_valid
+    # at the bf16 kernel's key-tile edges (one key, a tile less one, a tile, a tile and one) for
+    # the errors alone
     bc = attention.KEY_TILE
     k2 = []
     for b, n, kv_valid, timed in [(1, 1370, None, True), (1, 3601, None, True), (1, 1201, None, True),
-                                  (1, 1370, 1000, True), (8, 1370, None, True)] + \
+                                  (1, 1370, 1000, True), (8, 1370, None, True), (pano_b, pano_n, None, True),
+                                  (eval_b, eval_n, None, True)] + \
                                  [(1, 1370, kv, False) for kv in (1, bc - 1, bc, bc + 1)]:
         qkv = randn(b, n, 3, 16, 64)
         q, k, v = qkv[:, :, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
@@ -363,16 +416,35 @@ def phase_kernels():
     return results
 
 
-# K3 at the main path's shapes: moge-2-vitl-normal, 1369 tokens, batch 1 (a
-# 37^2 token grid). Per ConvStack level (74^2, 148^2, 296^2) the res blocks'
-# convs with the input ReLU, with ReLU and residual, and the plain ones; then
-# the up2 convs at 296^2 over parity-expanded weights: the neck's (4 x 32),
-# the points and normal heads' (4 x 3, the 1x1 folded in) and the mask
-# head's (4 x 1). (h, c, o, relu, residual, up2, launches per infer.)
-K3_MAIN = [(h, c, c, relu, res, False, n) for h, c in ((74, 256), (148, 128), (296, 64))
-           for relu, res, n in ((True, False, 5), (True, True, 5), (False, False, 4))] + \
-          [(296, 64, 4 * 32, False, False, True, 1), (296, 64, 4 * 3, False, False, True, 2),
-           (296, 64, 4 * 1, False, False, True, 1)]
+def path_grids() -> dict:
+    """path -> (batch, (base_h, base_w) token grid) of the moge-2-vitl-normal
+    forward of each inference path this script counts: the main path (518^2
+    at 1369 tokens), the panorama (12 views at PANO_SPLIT^2, resolution level
+    PANO_LEVEL) and eval (EVAL_HW at resolution level 9, the adapter's
+    default)."""
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import base_token_grid
+
+    lo, hi = get_preset("moge-2-vitl-normal")["config"]["num_tokens_range"]
+    tokens = {level: int(lo + (level / 9) * (hi - lo)) for level in (PANO_LEVEL, 9)}
+    return {"infer": (1, base_token_grid(1369, 1.0)), "panorama": (12, base_token_grid(tokens[PANO_LEVEL], 1.0)),
+            "eval": (1, base_token_grid(tokens[9], EVAL_HW[1] / EVAL_HW[0]))}
+
+
+def k3_shapes(grid_h: int, grid_w: int) -> list:
+    """K3's shapes in one moge-2-vitl-normal forward on a grid_h x grid_w
+    token grid. Per ConvStack level (2, 4 and 8 times the grid) the res
+    blocks' convs with the input ReLU, with ReLU and residual, and the plain
+    ones; then the up2 convs at the last level over parity-expanded weights:
+    the neck's (4 x 32), the points and normal heads' (4 x 3, the 1x1 folded
+    in) and the mask head's (4 x 1). (h, w, c, o, relu, residual, up2,
+    launches per forward.)"""
+    levels = [(2 * grid_h, 2 * grid_w, 256), (4 * grid_h, 4 * grid_w, 128), (8 * grid_h, 8 * grid_w, 64)]
+    return [(h, w, c, c, relu, res, False, n) for h, w, c in levels
+            for relu, res, n in ((True, False, 5), (True, True, 5), (False, False, 4))] + \
+           [(8 * grid_h, 8 * grid_w, 64, 4 * o, False, False, True, n) for o, n in ((32, 1), (3, 2), (1, 1))]
+
+
 K3_RAGGED = [(37, 53, 64, 64, True, True), (37, 53, 24, 20, True, False)]
 
 
@@ -412,60 +484,72 @@ def conv_times_text(ms, plain_ms, lib_ms, dev_ms, library="F.conv2d"):
 
 
 def conv_cases(gen):
-    """K3 (bf16) against its plain version at every main-path shape, then at
-    ragged ones; times (``conv_times``) of the kernel, the plain version and
-    F.conv2d; then K3 ms per infer by device time, kernel against library:
-    each shape's launches per infer x its time, and their sums."""
+    """K3 (bf16) against its plain version at every shape of the main path's
+    forward (batch 1, 1369 tokens), then at ragged ones, then at every shape
+    of the panorama's (12 views, 3600 tokens) and of eval's (480x640, 3600
+    tokens) forwards (``path_grids``); times (``conv_times``) of the kernel,
+    the plain version and F.conv2d; then per path K3 ms per forward by
+    device time, kernel against library: each shape's launches per forward
+    x its time, and their sums."""
     import torch
 
+    from moge_tpu_torch.models.presets import get_preset
     from moge_tpu_torch.ops import _build, conv
 
     dev = torch.device(DEVICE)
     bf16 = torch.bfloat16
-    cases, per_infer = [], {}
-    for h, w, c, o, relu, use_res, up2, n in [(h, h, *rest) for h, *rest in K3_MAIN] + \
-                                             [(*r, False, 0) for r in K3_RAGGED]:
-        x = torch.randn(1, h, w, c, generator=gen, device=dev).to(bf16)
-        kern = torch.randn(3, 3, c, o // 4 if up2 else o, generator=gen, device=dev) * (9 * c) ** -0.5
-        bias = torch.randn(kern.shape[-1], generator=gen, device=dev) * 0.1
-        if up2:  # the operands conv3x3_up2_bilinear hands K3
-            kern, bias = conv.up2_conv3_expanded(kern, bias, bf16)
-        kern = kern.to(bf16).contiguous()
-        res = torch.randn(1, h, w, o, generator=gen, device=dev).to(bf16) if use_res else None
-        before = dict(conv.VARIANT_LAUNCHES)
-        got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
-        variant = [k for k, v in conv.VARIANT_LAUNCHES.items() if v != before[k]]
-        want = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        ms, plain_ms, lib_ms, dev_ms = conv_times(x, kern, bias, res, relu)
-        bnd = conv_bound(x, kern, res)
-        label = f"{'up2 ' if up2 else ''}{h}x{w} {c}->{o} relu={relu} residual={use_res}"
-        log(f"[K3] {label} ({variant[0] if len(variant) == 1 else variant}, "
-            f"{conv._tile_config(1, 1, h, w, c, o, _build.sm_count(dev))}): max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(tol {K3_REL}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms)}; bound {bnd[0]:.4f} ms ({bnd[1]})")
-        if not rel <= K3_REL:
-            raise AssertionError(f"K3 conv disagrees at {label}: rel {rel} > {K3_REL}")
-        if variant not in [[v] for v in conv.PIPELINED]:
-            raise AssertionError(f"K3 at {label} took {variant}, not one pipelined wgmma variant")
-        cases.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
-        if n:
-            row = per_infer.setdefault(f"{'up2 ' if up2 else ''}{h}^2 {c}->{o}", [0, 0.0, 0.0])
-            row[0] += n
-            row[1] += n * dev_ms["device_ms"]
-            row[2] += n * dev_ms["library_device_ms"]
-        del x, kern, bias, res, got, want
-    for shape, (n, k_ms, l_ms) in per_infer.items():
-        log(f"[K3 per infer] {shape}: {n} launches, device time: kernel {k_ms:.4f} ms, F.conv2d {l_ms:.4f} ms")
-    total = [sum(r[i] for r in per_infer.values()) for i in range(3)]
-    from moge_tpu_torch.models.presets import get_preset
-
+    grids = path_grids()
     want = expected_launches(get_preset("moge-2-vitl-normal")["config"])["conv3x3"]
-    if total[0] != want:
-        raise AssertionError(f"K3_MAIN lists {total[0]} launches per infer, the config implies {want}")
-    log(f"[K3 per infer] moge-2-vitl-normal, 1369 tokens, batch 1: {total[0]} launches, kernel "
-        f"{total[1]:.4f} ms vs F.conv2d {total[2]:.4f} ms (device time)")
-    torch.cuda.empty_cache()
+    runs = [("infer", grids["infer"][0], k3_shapes(*grids["infer"][1])),
+            (None, 1, [(*r, False, 0) for r in K3_RAGGED])] + \
+           [(path, grids[path][0], k3_shapes(*grids[path][1])) for path in ("panorama", "eval")]
+    cases = []
+    for path, batch, shapes in runs:
+        per_forward = {}
+        for h, w, c, o, relu, use_res, up2, n in shapes:
+            x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(bf16)
+            kern = torch.randn(3, 3, c, o // 4 if up2 else o, generator=gen, device=dev) * (9 * c) ** -0.5
+            bias = torch.randn(kern.shape[-1], generator=gen, device=dev) * 0.1
+            if up2:  # the operands conv3x3_up2_bilinear hands K3
+                kern, bias = conv.up2_conv3_expanded(kern, bias, bf16)
+            kern = kern.to(bf16).contiguous()
+            res = torch.randn(batch, h, w, o, generator=gen, device=dev).to(bf16) if use_res else None
+            before = dict(conv.VARIANT_LAUNCHES)
+            got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
+            variant = [k for k, v in conv.VARIANT_LAUNCHES.items() if v != before[k]]
+            want_out = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
+            err = (got - want_out).abs().max().item()
+            rel = err / want_out.abs().max().item()
+            del got, want_out
+            ms, plain_ms, lib_ms, dev_ms = conv_times(x, kern, bias, res, relu)
+            bnd = conv_bound(x, kern, res)
+            label = f"{'up2 ' if up2 else ''}B={batch} {h}x{w} {c}->{o} relu={relu} residual={use_res}"
+            log(f"[K3] {label} ({variant[0] if len(variant) == 1 else variant}, "
+                f"{conv._tile_config(1, batch, h, w, c, o, _build.sm_count(dev))}): max_abs_err {err:.3e} rel "
+                f"{rel:.3e} (tol {K3_REL}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms)}; "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if not rel <= K3_REL:
+                raise AssertionError(f"K3 conv disagrees at {label}: rel {rel} > {K3_REL}")
+            if variant not in [[v] for v in conv.PIPELINED]:
+                raise AssertionError(f"K3 at {label} took {variant}, not one pipelined wgmma variant")
+            cases.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
+            if n:
+                row = per_forward.setdefault(f"{'up2 ' if up2 else ''}{h}x{w} {c}->{o}", [0, 0.0, 0.0])
+                row[0] += n
+                row[1] += n * dev_ms["device_ms"]
+                row[2] += n * dev_ms["library_device_ms"]
+            del x, kern, bias, res
+        torch.cuda.empty_cache()
+        if path is None:
+            continue
+        for shape, (n, k_ms, l_ms) in per_forward.items():
+            log(f"[K3 per forward] {path}: {shape}: {n} launches, device time: kernel {k_ms:.4f} ms, "
+                f"F.conv2d {l_ms:.4f} ms")
+        total = [sum(r[i] for r in per_forward.values()) for i in range(3)]
+        if total[0] != want:
+            raise AssertionError(f"k3_shapes lists {total[0]} launches per forward, the config implies {want}")
+        log(f"[K3 per forward] {path}: moge-2-vitl-normal, batch {batch}, token grid {grids[path][1]}: "
+            f"{total[0]} launches, kernel {total[1]:.4f} ms vs F.conv2d {total[2]:.4f} ms (device time)")
     return cases
 
 
@@ -474,14 +558,14 @@ def conv_cases(gen):
 VARIANTS_BY_PATH = {}
 
 
-def check_variants(path: str, label: str, counts: dict) -> dict:
+def check_variants(path: str, label: str, counts: dict, runs: int = 1) -> dict:
     """Every K1 launch of a counted run took the vec16 variant
     (``norm.VARIANT_LAUNCHES``), every K3 and K3-grouped launch a pipelined
     wgmma variant (``conv.VARIANT_LAUNCHES``), and every K2, K2b-dq and
     K2b-dkv launch, bf16 on every counted path, the wgmma kernel
     (``attention.VARIANT_LAUNCHES``, ``attention.BWD_VARIANT_LAUNCHES``); all
     set to 0 with the other counts. Records the run's variants under
-    ``path``."""
+    ``path``, divided by ``runs`` when ``counts`` covers that many runs."""
     from moge_tpu_torch.ops import attention, conv, norm
 
     variants = {"conv": dict(conv.VARIANT_LAUNCHES), "attention": dict(attention.VARIANT_LAUNCHES),
@@ -501,7 +585,7 @@ def check_variants(path: str, label: str, counts: dict) -> dict:
         raise AssertionError(f"{label}: K2b launches by variant {variants['attention_bwd']}, counts "
                              f"{counts['flash_attention_dq']} + {counts['flash_attention_dkv']}: not all on the "
                              f"wgmma kernels")
-    VARIANTS_BY_PATH[path] = variants
+    VARIANTS_BY_PATH[path] = {kind: {k: n // runs for k, n in v.items()} for kind, v in variants.items()}
     return variants
 
 
@@ -1253,6 +1337,298 @@ def phase_moge1(card: str):
     return (counts_seen[0], len(counts_seen)), latencies
 
 
+def panorama_image(rng):
+    """A seeded smooth 960x1920 uint8 equirectangular image: low-frequency
+    colour waves over the sphere plus a little noise."""
+    import numpy as np
+
+    h, w = PANO_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    u, v = xx / w, yy / h
+    image = np.stack([128 + 90 * np.sin(2 * np.pi * u) * np.sin(np.pi * v), 128 + 90 * np.cos(6 * np.pi * u),
+                      128 + 60 * np.sin(5 * np.pi * v)], -1)
+    return np.clip(image + rng.normal(0, 6, image.shape), 0, 255).astype(np.uint8)
+
+
+def phase_panorama(card: str):
+    """The panorama path (``scripts.infer_panorama.infer_panorama``): a
+    seeded smooth 960x1920 uint8 image, its 12 icosahedral views at 512^2
+    through one ``moge-2-vitl-normal`` bf16 ``infer`` (random weights, the
+    points head a known perspective and the mask head a constant logit, see
+    PANO_MASK_LOGIT), the CG merge at 1920x960 on the card; a warm-up run and
+    the run, launch counters per run (one 12-view forward). Gates: (a) the
+    outputs finite, shaped, the mask not empty; (b) the card's split against
+    the CPU's; (c) a known smooth field, seen by the 12 views at 512^2,
+    merged by CG on the card at 1920x960, recovered to the JAX test's
+    bounds; (d) CG on the card against LSMR on the host on that field with
+    blocks knocked out, at the JAX test's size and bounds (see
+    PANO_CG_LSMR_SIZE), and at 512x256 CG on the card against CG on the CPU
+    from the model's own distance maps (the two solvers stop short of the
+    least-squares answer there: their difference is printed); (e) before the
+    heads are replaced, the 12-view forward against each view's batch-1
+    forward."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch import panorama as pano
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import MoGeModel
+    from moge_tpu_torch.ops.resize import resize_2d
+    from moge_tpu_torch.scripts.infer_panorama import infer_panorama
+    from moge_tpu_torch.utils.geometry_numpy import uv_map_numpy
+    from moge_tpu_torch.utils.tools import timeit
+    from torch_tiny_config import make_points_perspective, smooth_distance, smooth_field_views
+
+    config = get_preset("moge-2-vitl-normal")["config"]
+    expect = expected_launches(config)
+    model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+    image = panorama_image(np.random.default_rng(SEED + 7))
+    extrinsics, intrinsics = pano.get_panorama_cameras()
+    h, w = PANO_HW
+
+    # (b) the split on the card against the CPU
+    card_views = pano.split_panorama_image(torch.from_numpy(image).to(DEVICE), extrinsics, intrinsics, PANO_SPLIT)
+    cpu_views = pano.split_panorama_image(torch.from_numpy(image), extrinsics, intrinsics, PANO_SPLIT)
+    split_diff = (card_views.cpu().int() - cpu_views.int()).abs().max().item()
+    log(f"[panorama] split {h}x{w} -> 12 x {PANO_SPLIT}^2 uint8, card vs CPU: max {split_diff} levels "
+        f"(tol {PANO_SPLIT_LEVELS})")
+    if card_views.dtype != torch.uint8 or split_diff > PANO_SPLIT_LEVELS:
+        raise AssertionError(f"panorama split: card vs CPU {split_diff} levels ({card_views.dtype})")
+
+    # (e) the 12-view forward with the model's own heads against each view's batch-1 forward:
+    # raw maps within MODEL_L2_RTOL (bf16 sums in another order: the tiles and GEMMs differ with
+    # the batch). A fault of a kernel at the batch-12 shapes shows here; phase_kernels holds each
+    # of those shapes against its plain version
+    batch, (grid_h, grid_w) = path_grids()["panorama"]
+    with torch.inference_mode():
+        image_14 = resize_2d(card_views.float() / 255.0, (grid_h * 14, grid_w * 14), mode="bilinear", antialias=True)
+        views_raw = model.module.decode(image_14, grid_h, grid_w, 1.0, torch.bfloat16)
+        single_raw = [model.module.decode(image_14[i:i + 1], grid_h, grid_w, 1.0, torch.bfloat16)
+                      for i in range(batch)]
+    forward_rel = {}
+    for key in sorted(views_raw):
+        rels = [((views_raw[key][i].float() - one[key][0].float()).norm() / one[key][0].float().norm()).item()
+                for i, one in enumerate(single_raw)]
+        forward_rel[key] = max(rels)
+        if not (views_raw[key].shape[0] == batch and bool(torch.isfinite(views_raw[key]).all())
+                and forward_rel[key] <= MODEL_L2_RTOL):
+            raise AssertionError(f"panorama: the {batch}-view forward's {key} against each view's batch-1 "
+                                 f"forward: relative L2 up to {forward_rel[key]} (tol {MODEL_L2_RTOL})")
+    log(f"[panorama] {batch}-view forward ({grid_h}x{grid_w} tokens, the model's own heads) vs each view's "
+        f"batch-1 forward, worst relative L2 per raw map: "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in forward_rel.items())} (tol {MODEL_L2_RTOL})")
+    del image_14, views_raw, single_raw
+
+    make_points_perspective(model.module)
+    with torch.no_grad():
+        mask_out = model.module.mask_head.output_blocks[-1]
+        mask_out.weight.zero_()
+        mask_out.bias.fill_(PANO_MASK_LOGIT)
+
+    stages = ("panorama split", "panorama infer", "panorama merge", "panorama")
+    levels = []
+    size = PANO_MERGE
+    while True:
+        levels.append(size)
+        if max(size) <= 256:
+            break
+        size = (size[0] // 2, size[1] // 2)
+    timings = {}
+    for run in range(PANO_RUNS):
+        label = "warm-up" if run == 0 else "run"
+        reset_counts()
+        pano.CG_ITERATIONS.clear()
+        out = infer_panorama(model, image, resolution_level=PANO_LEVEL, merge_solver="cg",
+                             split_resolution=PANO_SPLIT, merge_size=PANO_MERGE)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expect:
+            raise AssertionError(f"panorama {label}: kernel launches {counts}, expected {expect} per 12-view forward")
+        variants = check_variants("panorama", f"panorama {label}", counts)
+        # (a) outputs
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        want = {"depth": (h, w), "mask": (h, w), "points": (h, w, 3), "views": (12, PANO_SPLIT, PANO_SPLIT, 3),
+                "distances": (12, PANO_SPLIT, PANO_SPLIT), "view_masks": (12, PANO_SPLIT, PANO_SPLIT)}
+        if shapes != want:
+            raise AssertionError(f"panorama {label}: output shapes {shapes}, expected {want}")
+        mask = out["mask"]
+        if not mask.any() or not bool(torch.isfinite(out["depth"]).all()) or not bool(torch.isfinite(out["points"]).all()):
+            raise AssertionError(f"panorama {label}: empty mask ({mask.float().mean().item()}) or non-finite output")
+        if not bool((out["depth"] > 0).all()) or not torch.equal(out["views"], card_views):
+            raise AssertionError(f"panorama {label}: non-positive depth, or views other than the split's")
+        stage_ms = {s: timeit.history(s)[-1] * 1e3 for s in stages}
+        level_ms = {f"{lw}x{lh}": timeit.history(f"panorama merge {lw}x{lh}")[-1] * 1e3 for lw, lh in levels}
+        cg_ms = {f"{lw}x{lh}": timeit.history(f"panorama cg {lw}x{lh}")[-1] * 1e3 for lw, lh in levels}
+        iterations = {f"{lw}x{lh}": pano.CG_ITERATIONS[(lw, lh)] for lw, lh in levels}
+        timings = {"stages_ms": stage_ms, "merge_levels_ms": level_ms, "cg_levels_ms": cg_ms,
+                   "cg_iterations": iterations}
+        log(f"[panorama] {label}: mask {mask.float().mean().item():.4f} of pixels, depth "
+            f"{out['depth'].min().item():.3f}..{out['depth'].max().item():.3f}, launches {counts}, variants "
+            f"{variants}")
+        log(f"[panorama] {label}: wall ms {json.dumps({k: round(v, 2) for k, v in stage_ms.items()})}, merge by "
+            f"level {json.dumps({k: round(v, 2) for k, v in level_ms.items()})}, of it CG "
+            f"{json.dumps({k: round(v, 2) for k, v in cg_ms.items()})}, CG iterations per level "
+            f"{json.dumps(iterations)} ({card})")
+
+    # (c) known-field recovery at the full merge size, CG on the card
+    maps, masks = (torch.from_numpy(a) for a in smooth_field_views(PANO_SPLIT))
+    merged, merged_mask = pano.merge_panorama_depth(*PANO_MERGE, maps.to(DEVICE), masks.to(DEVICE), extrinsics,
+                                                    intrinsics, solver="cg")
+    gt = smooth_distance(pano.spherical_uv_to_directions(uv_map_numpy(PANO_MERGE[1], PANO_MERGE[0])))
+    merged = merged.cpu().numpy()
+    rel = np.abs(merged * np.median(gt / merged) - gt) / gt
+    log(f"[panorama] known field at {PANO_MERGE[0]}x{PANO_MERGE[1]}, CG on the card: relative error median "
+        f"{np.median(rel):.3e} (tol {PANO_FIELD_MEDIAN}), mean {rel.mean():.3e} (tol {PANO_FIELD_MEAN})")
+    if not (bool(merged_mask.all()) and np.median(rel) < PANO_FIELD_MEDIAN and rel.mean() < PANO_FIELD_MEAN):
+        raise AssertionError("panorama: the CG merge on the card missed the known field")
+
+    # (d) CG on the card against LSMR on the host, and against CG on the CPU
+    def compare(a, b):
+        r = ((a.cpu() - b.cpu()).abs() / b.cpu())
+        return r.median().item(), r.max().item()
+
+    maps, masks = (torch.from_numpy(a) for a in smooth_field_views(PANO_CG_LSMR_VIEWS, knock_out=True))
+    cg, cg_mask = pano.merge_panorama_depth(*PANO_CG_LSMR_SIZE, maps.to(DEVICE), masks.to(DEVICE), extrinsics,
+                                            intrinsics, solver="cg")
+    lsmr, lsmr_mask = pano.merge_panorama_depth(*PANO_CG_LSMR_SIZE, maps, masks, extrinsics, intrinsics,
+                                                solver="lsmr")
+    med, mx = compare(cg, lsmr)
+    log(f"[panorama] known field, blocks knocked out, views {PANO_CG_LSMR_VIEWS}^2, merged at "
+        f"{PANO_CG_LSMR_SIZE[0]}x{PANO_CG_LSMR_SIZE[1]}: CG on the card vs LSMR on the host: relative "
+        f"median {med:.3e} (tol {PANO_CG_LSMR_MEDIAN}), max {mx:.3e} (tol {PANO_CG_LSMR_MAX})")
+    if not (torch.equal(cg_mask.cpu(), lsmr_mask) and med < PANO_CG_LSMR_MEDIAN and mx < PANO_CG_LSMR_MAX):
+        raise AssertionError("panorama: CG on the card disagrees with LSMR on the host")
+    dist, vmask = out["distances"], out["view_masks"]
+    cg, cg_mask = pano.merge_panorama_depth(512, 256, dist, vmask, extrinsics, intrinsics, solver="cg")
+    cpu_cg, cpu_mask = pano.merge_panorama_depth(512, 256, dist.cpu(), vmask.cpu(), extrinsics, intrinsics,
+                                                 solver="cg")
+    lsmr, lsmr_mask = pano.merge_panorama_depth(512, 256, dist.cpu(), vmask.cpu(), extrinsics, intrinsics,
+                                                solver="lsmr")
+    med, mx = compare(cg, cpu_cg)
+    lmed, lmx = compare(cg, lsmr)
+    log(f"[panorama] the model's distance maps, 512x256: CG card vs CPU relative median {med:.3e}, max {mx:.3e} "
+        f"(tol {PANO_CG_CARD_CPU}); CG card vs LSMR host median {lmed:.3e}, max {lmx:.3e} (not gated: both "
+        f"stop short of the least-squares answer at this size)")
+    if not (torch.equal(cg_mask.cpu(), cpu_mask) and torch.equal(cpu_mask, lsmr_mask) and mx <= PANO_CG_CARD_CPU):
+        raise AssertionError("panorama: CG on the card disagrees with CG on the CPU")
+    timings.update(split_card_vs_cpu_levels=split_diff, forward_batch_vs_single_rel=forward_rel,
+                   field_median_rel=float(np.median(rel)),
+                   cg_vs_lsmr_model_maps={"median": lmed, "max": lmx})
+    del model
+    return (expect, PANO_RUNS), timings
+
+
+def phase_eval(card: str):
+    """The eval path: a seeded synthetic benchmark of EVAL_SAMPLES samples at
+    480x640 (sample 0 with inf depth, sample 1 with segmentation) written by
+    the port's codecs into a temp dir, evaluated by the ``eval_baseline``
+    command through the port's MoGe adapter (``moge-2-vitl-normal``, random
+    weights saved as a ``.pt``, bf16, 3600 tokens), the loader cropping to
+    480x640 and the alignment solves on the card; launch counters over the
+    command, per sample. Gates: every metric finite, every class the
+    adapter's metric outputs imply present, every solve on the card; for
+    sample 1, ``compute_metrics`` on the card equal to ``compute_metrics`` on
+    the CPU on the same predictions (EVAL_RTOL; boundary F1 exactly)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.eval import metrics
+    from moge_tpu_torch.eval.dataloader import EvalDataLoaderPipeline
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import MoGeModel
+    from moge_tpu_torch.scripts import eval_baseline
+    from moge_tpu_torch.utils.tools import flatten_nested_dict, import_file_as_module, timeit
+    from torch_tiny_config import write_benchmark
+
+    config = get_preset("moge-2-vitl-normal")["config"]
+    expect = expected_launches(config)
+    adapter = ROOT / "moge_tpu_torch" / "baselines" / "moge.py"
+    h, w = EVAL_HW
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_benchmark(tmp / "bench", n_samples=EVAL_SAMPLES, hw=EVAL_HW, seed=SEED)
+        model = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+        torch.save({"model_config": config, "model": model.module.state_dict()}, tmp / "model.pt")
+        del model
+        bench = {"path": str(tmp / "bench"), "width": w, "height": h, "depth_unit": 1.0,
+                 "has_sharp_boundary": True, "include_segmentation": True}
+        (tmp / "config.json").write_text(json.dumps({"synthetic": bench}))
+        args = ["--baseline", str(adapter), "--config", str(tmp / "config.json"), "--output",
+                str(tmp / "result.json"), "--pretrained", str(tmp / "model.pt"), "--fp16", "--version", "v2",
+                "--device", DEVICE]
+        reset_counts()
+        metrics.SOLVES.clear()
+        t0 = time.perf_counter()
+        eval_baseline.command().main(args, standalone_mode=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        solves = dict(metrics.SOLVES)
+        want_counts = {k: v * EVAL_SAMPLES for k, v in expect.items()}
+        if counts != want_counts:
+            raise AssertionError(f"eval: launches {counts} over {EVAL_SAMPLES} samples, expected {want_counts}")
+        variants = check_variants("eval", "eval", counts, runs=EVAL_SAMPLES)
+        if set(solves) != {torch.device(DEVICE).type} or not solves[torch.device(DEVICE).type]:
+            raise AssertionError(f"eval: alignment solves by device {solves}, expected all on the card")
+        result = json.loads((tmp / "result.json").read_text())
+        flat = flatten_nested_dict(result["synthetic"])
+        bad = [k for k, v in flat.items() if not np.isfinite(v)]
+        families = {k[0] for k in flat}
+        want_families = {"depth_metric", "depth_scale_invariant", "depth_affine_invariant",
+                         "disparity_affine_invariant", "points_metric", "points_scale_invariant",
+                         "points_affine_invariant", "local_points", "fov_x", "boundary", "inference_time"}
+        if bad or families != want_families:
+            raise AssertionError(f"eval: non-finite metrics {bad}, or classes {sorted(families)} "
+                                 f"!= {sorted(want_families)}")
+
+        # one sample, compute_metrics on the card and on the CPU from the same predictions
+        baseline = import_file_as_module(adapter, "moge_adapter").Baseline.load.main(
+            ["--pretrained", str(tmp / "model.pt"), "--fp16", "--device", DEVICE], standalone_mode=False)
+        loader_bench = dict(bench, num_load_workers=1, num_process_workers=1)
+        t0 = time.perf_counter()
+        with EvalDataLoaderPipeline(**loader_bench) as pipe:
+            samples = [pipe.get() for _ in range(len(pipe))]
+        load_s = (time.perf_counter() - t0) / EVAL_SAMPLES
+        sample = samples[1]
+        pred = baseline.infer_for_evaluation(sample["image"])
+        del baseline
+        torch.cuda.empty_cache()
+        metrics_s = []
+        for _ in range(2):
+            solved = len(timeit.history("eval solve"))
+            t0 = time.perf_counter()
+            card_metrics, _ = metrics.compute_metrics(pred, sample, device=DEVICE)
+            torch.cuda.synchronize()
+            metrics_s.append(time.perf_counter() - t0)
+            solve_s = sum(timeit.history("eval solve")[solved:])
+        t0 = time.perf_counter()
+        cpu_metrics, _ = metrics.compute_metrics(pred, sample, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    card_flat, cpu_flat = flatten_nested_dict(card_metrics), flatten_nested_dict(cpu_metrics)
+    if card_flat.keys() != cpu_flat.keys() or "local_points" not in card_metrics:
+        raise AssertionError(f"eval: card metrics {sorted(card_flat)} vs CPU {sorted(cpu_flat)}")
+    worst_rel = max(abs(card_flat[k] - v) / max(abs(v), 1e-12) for k, v in cpu_flat.items() if k[0] != "boundary")
+    boundary_same = all(card_flat[k] == v for k, v in cpu_flat.items() if k[0] == "boundary")
+    log(f"[eval] sample_1 compute_metrics card vs CPU: worst relative {worst_rel:.3e} (tol {EVAL_RTOL}), "
+        f"boundary F1 equal {boundary_same}")
+    if not (worst_rel <= EVAL_RTOL and boundary_same):
+        raise AssertionError("eval: compute_metrics on the card disagrees with the CPU")
+    stats = {"samples": EVAL_SAMPLES, "hw": list(EVAL_HW), "command_s_per_sample": wall_s / EVAL_SAMPLES,
+             "inference_s_per_sample": result["synthetic"]["inference_time"], "load_s_per_sample": load_s,
+             "metrics_s_per_sample_card": metrics_s[-1], "solves_s_card": solve_s, "metrics_s_cpu": cpu_s,
+             "solves": sum(solves.values()),
+             "card_vs_cpu_worst_rel": worst_rel}
+    log(f"[eval] {EVAL_SAMPLES} samples at {h}x{w} through eval_baseline (ViT-L bf16, 3600 tokens): "
+        f"{stats['command_s_per_sample']:.3f} s per sample in the command; inference "
+        f"{stats['inference_s_per_sample']:.3f} s, metrics on the card {metrics_s[-1]:.3f} s ({solve_s:.3f} s in "
+        f"the alignment solves; first "
+        f"{metrics_s[0]:.3f}; CPU {cpu_s:.3f}), load {load_s:.3f} s per sample; solves by device {solves}; "
+        f"launches per sample {expect}, variants per sample {VARIANTS_BY_PATH['eval']} ({card})")
+    return (expect, EVAL_SAMPLES), stats
+
+
 def train_batch(rng, batch: int, hw, label_type_idx: int, device):
     """A seeded training batch shaped like ``__graft_entry__.dryrun_multichip``'s:
     smooth depth surfaces (so the local losses find 3D neighbours), ~10%
@@ -1500,6 +1876,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["moge1_infer"], moge1_ms = phase_moge1(card)
     torch.cuda.empty_cache()
+    launches["panorama"], panorama_stats = phase_panorama(card)
+    torch.cuda.empty_cache()
+    launches["eval"], eval_stats = phase_eval(card)
+    torch.cuda.empty_cache()
     launches["train"], train_steps = phase_train(card)
     phase_train_parity()
     kernels = []
@@ -1518,7 +1898,8 @@ def main() -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **dict(*device),
                         **variants})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
-                      "serve": serve_stats, "moge1_infer_ms": moge1_ms, "train_steps": train_steps,
+                      "serve": serve_stats, "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
+                      "eval": eval_stats, "train_steps": train_steps,
                       "probes": probe_tables}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

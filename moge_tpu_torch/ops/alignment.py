@@ -279,7 +279,7 @@ def align_points_xyz_shift(points_src, points_tgt, weight, trunc=None):
 
 def align_affine_lstsq(x, y, w=None):
     """Weighted least-squares affine fit y ~ a x + b over the last axis, by
-    the 2x2 normal equations in fp32. Returns (a, b)."""
+    the 2x2 normal equations in the inputs' dtype. Returns (a, b)."""
     w_sqrt = torch.ones_like(x) if w is None else w.sqrt()
     A = torch.stack([w_sqrt * x, torch.ones_like(x)], dim=-1)
     b = (w_sqrt * y)[..., None]

@@ -1,2 +1,4 @@
-"""Entry points of the port: the inference CLI (``infer``) and the
-micro-batching HTTP server (``serve``), grouped by ``cli``."""
+"""Entry points of the port: the inference CLI (``infer``), the
+micro-batching HTTP server (``serve``), panorama inference
+(``infer_panorama``) and the eval harness's commands (``eval_baseline``,
+``infer_baseline``), grouped by ``cli``."""

@@ -1,5 +1,6 @@
-"""Depth and normal colorization (reference moge/utils/vis.py, Spectral
-colormap). Copies of the JAX package's ``moge_tpu/utils/vis.py`` functions."""
+"""Depth, disparity and normal colorization (reference moge/utils/vis.py,
+Spectral colormap). Copies of the JAX package's ``moge_tpu/utils/vis.py``
+functions; matplotlib is imported inside them."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["colorize_depth", "colorize_normal"]
+__all__ = ["colorize_depth", "colorize_depth_affine", "colorize_disparity", "colorize_normal"]
 
 
 def _nanquantile_range(x: np.ndarray, lo: float, hi: float) -> Tuple[float, float]:
@@ -34,6 +35,30 @@ def colorize_depth(depth: np.ndarray, mask: Optional[np.ndarray] = None, normali
         min_disp, max_disp = _nanquantile_range(disp, 0.001, 0.99)
         disp = (disp - min_disp) / (max_disp - min_disp)
     colored = np.nan_to_num(matplotlib.colormaps[cmap](1.0 - disp)[..., :3], 0)
+    return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))
+
+
+def colorize_depth_affine(depth: np.ndarray, mask: Optional[np.ndarray] = None, cmap: str = "Spectral") -> np.ndarray:
+    import matplotlib
+
+    if mask is not None:
+        depth = np.where(mask, depth, np.nan)
+    min_depth, max_depth = _nanquantile_range(depth, 0.001, 0.999)
+    depth = (depth - min_depth) / (max_depth - min_depth)
+    colored = np.nan_to_num(matplotlib.colormaps[cmap](depth)[..., :3], 0)
+    return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))
+
+
+def colorize_disparity(disparity: np.ndarray, mask: Optional[np.ndarray] = None, normalize: bool = True,
+                       cmap: str = "Spectral") -> np.ndarray:
+    import matplotlib
+
+    if mask is not None:
+        disparity = np.where(mask, disparity, np.nan)
+    if normalize:
+        min_disp, max_disp = _nanquantile_range(disparity, 0.001, 0.999)
+        disparity = (disparity - min_disp) / (max_disp - min_disp)
+    colored = np.nan_to_num(matplotlib.colormaps[cmap](1.0 - disparity)[..., :3], 0)
     return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))
 
 

@@ -1,9 +1,11 @@
 """The port's inference CLI (moge_tpu_torch.scripts.infer, grouped in
 moge_tpu_torch.scripts.cli) through click's CliRunner on the CPU: tiny
 MoGe-2 and MoGe-1 checkpoints written as reference-format ``.pt`` files,
-the maps and fov.json it writes, and the command group."""
+the maps and fov.json it writes, the panorama command, and the command
+group with its refusal of a missing card."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,8 +14,10 @@ import torch
 from moge_tpu_torch.models import import_model_class_by_version
 from moge_tpu_torch.models.v1 import MoGeModel as MoGeV1Model
 from moge_tpu_torch.models.v2 import MoGeModel
-from moge_tpu_torch.scripts import cli, infer
+from moge_tpu_torch.scripts import cli, infer, infer_panorama
 from torch_tiny_config import TINY_CONFIG, make_points_perspective
+
+ROOT = Path(__file__).resolve().parent.parent
 
 torch.set_num_threads(1)
 
@@ -117,6 +121,78 @@ def test_cli_group_offers_the_ported_commands():
     from click.testing import CliRunner
 
     group = cli.command()
-    assert set(group.commands) == {"infer", "serve"}
+    assert set(group.commands) == {"infer", "serve", "infer_panorama", "eval_baseline", "infer_baseline"}
     result = CliRunner().invoke(group, ["--help"])
-    assert result.exit_code == 0 and "infer" in result.output and "serve" in result.output
+    assert result.exit_code == 0 and all(name in result.output for name in group.commands)
+
+
+@pytest.mark.parametrize("name", ["infer_panorama", "eval_baseline", "infer_baseline"])
+def test_new_commands_refuse_a_missing_card(checkpoints, tmp_path, name):
+    """``--device cuda`` (the default) without a card is refused up front:
+    by the command, or by the port's MoGe adapter the eval commands load."""
+    from click.testing import CliRunner
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _write_image(tmp_path / "scene.png", 56, 56, seed=3)
+    adapter = str(ROOT / "moge_tpu_torch" / "baselines" / "moge.py")
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({}))
+    args = {"infer_panorama": ["-i", str(tmp_path / "scene.png"), "--pretrained", str(checkpoints["v2"]),
+                               "--device", "cuda"],
+            "eval_baseline": ["--baseline", adapter, "--config", str(config), "-o", str(tmp_path / "r.json"),
+                              "--pretrained", str(checkpoints["v2"]), "--device", "cuda"],
+            "infer_baseline": ["--baseline", adapter, "-i", str(tmp_path / "scene.png"), "--pretrained",
+                               str(checkpoints["v2"]), "--device", "cuda"]}[name]
+    result = CliRunner().invoke(cli.command(), [name, *args])
+    assert result.exit_code == 2 and "no CUDA device" in result.output, result.output
+
+
+def test_infer_panorama_cli_writes_the_maps_and_warns_on_show(tmp_path):
+    """The panorama command on a tiny MoGe-2 with few tokens: the maps and
+    meshes it writes, the depth equal to ``infer_panorama``'s, and ``--show``
+    accepted with the headless warning."""
+    from click.testing import CliRunner
+
+    from moge_tpu.utils.io import read_exr
+
+    config = dict(TINY_CONFIG, num_tokens_range=[16, 36])
+    model = MoGeModel(config, "cpu", torch.float32).init_random(seed=0)
+    make_points_perspective(model.module)
+    torch.save({"model_config": config, "model": model.module.state_dict()}, tmp_path / "model.pt")
+    image = _write_image(tmp_path / "pano.png", 64, 128, seed=5)
+    with pytest.warns(UserWarning, match="headless"):
+        result = CliRunner().invoke(infer_panorama.command(), [
+            "-i", str(tmp_path / "pano.png"), "-o", str(tmp_path / "out"), "--pretrained", str(tmp_path / "model.pt"),
+            "--version", "v2", "--device", "cpu", "--merge_solver", "cg", "--maps", "--ply", "--show"])
+    assert result.exit_code == 0, result.output
+    save = tmp_path / "out" / "pano"
+    for name in ("image.jpg", "depth_vis.png", "depth.exr", "points.exr", "mask.png", "mesh.ply"):
+        assert (save / name).is_file(), name
+    want = infer_panorama.infer_panorama(model, image, merge_solver="cg")
+    np.testing.assert_allclose(read_exr(save / "depth.exr"), want["depth"].numpy(), rtol=1e-6)
+    assert read_exr(save / "points.exr").shape == (64, 128, 3)
+
+
+def test_eval_baseline_oracle_and_dumps(checkpoints, tmp_path):
+    """``eval_baseline`` through the port's adapter on the CPU: ``--oracle``
+    hands the adapter the ground-truth intrinsics, so the field of view is
+    the ground truth's; ``--dump_pred``/``--dump_gt`` write the sample's maps
+    and metrics beside the result."""
+    from click.testing import CliRunner
+
+    from torch_tiny_config import write_benchmark
+
+    write_benchmark(tmp_path / "data", n_samples=1)
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({"synthetic": {"path": str(tmp_path / "data"), "width": 80, "height": 60,
+                                                "depth_unit": 1.0, "num_load_workers": 1, "num_process_workers": 1}}))
+    result = CliRunner().invoke(cli.command(), [
+        "eval_baseline", "--baseline", str(ROOT / "moge_tpu_torch" / "baselines" / "moge.py"), "--config",
+        str(config), "--output", str(tmp_path / "oracle.json"), "--oracle", "--dump_pred", "--dump_gt",
+        "--pretrained", str(checkpoints["v2"]), "--num_tokens", "64", "--device", "cpu"])
+    assert result.exit_code == 0, result.output
+    assert json.loads((tmp_path / "oracle.json").read_text())["synthetic"]["fov_x"]["mae"] < 1e-3  # degrees
+    dump = tmp_path / "oracle_dump" / "synthetic" / "sample_0"
+    for name in ("pred/image.jpg", "pred/depth.png", "pred/metrics.json", "pred/fov.json", "gt/depth.png"):
+        assert (dump / name).is_file(), name

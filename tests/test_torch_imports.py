@@ -1,6 +1,8 @@
 """The port stands alone: no module of moge_tpu_torch, and not chip_smoke.py,
 imports JAX or the JAX package (moge_tpu), at any depth, inside functions
-too; and its model entry points run on the card unless asked for the CPU."""
+too; none imports the host-only packages (cv2, PIL, click, matplotlib) when
+it is imported, so the package loads where they are missing; and its model
+entry points run on the card unless asked for the CPU."""
 
 import ast
 import inspect
@@ -12,16 +14,33 @@ from moge_tpu_torch.models import v1, v2
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "moge_tpu"}
+HOST_ONLY = {"cv2", "PIL", "click", "matplotlib"}  # imported inside the functions that use them
 SOURCES = sorted((ROOT / "moge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _roots(node):
+    if isinstance(node, ast.Import):
+        yield from ((node.lineno, alias.name.split(".")[0]) for alias in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+        yield node.lineno, node.module.split(".")[0]
 
 
 def _imported_roots(path: Path):
     """(line, top-level module) of every absolute import in a source file."""
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-        if isinstance(node, ast.Import):
-            yield from ((node.lineno, alias.name.split(".")[0]) for alias in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.lineno, node.module.split(".")[0]
+        yield from _roots(node)
+
+
+def _import_time_roots(path: Path):
+    """(line, top-level module) of the absolute imports that run when the
+    file is imported: every one outside a function body."""
+    todo = list(ast.parse(path.read_text(), filename=str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        yield from _roots(node)
+        todo.extend(ast.iter_child_nodes(node))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -29,6 +48,21 @@ def test_no_import_of_jax_or_the_jax_package(path):
     bad = [f"{path.relative_to(ROOT)}:{line} imports {root}" for line, root in _imported_roots(path)
            if root in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_time_import_of_host_only_packages(path):
+    bad = [f"{path.relative_to(ROOT)}:{line} imports {root} at import time"
+           for line, root in _import_time_roots(path) if root in HOST_ONLY]
+    assert not bad, bad
+
+
+def test_the_host_only_guard_skips_function_bodies(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import numpy\nimport click\n\nclass A:\n    from PIL import Image\n\n"
+                   "    def f(self):\n        import cv2\n\ndef g():\n    import matplotlib\n"
+                   "try:\n    import cv2.ximgproc\nexcept ImportError:\n    pass\n")
+    assert sorted(root for _, root in _import_time_roots(src)) == ["PIL", "click", "cv2", "numpy"]
 
 
 def test_the_guard_sees_nested_imports(tmp_path):

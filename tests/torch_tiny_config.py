@@ -1,8 +1,10 @@
 """Tiny MoGe-2 config shared by the port's tests (no JAX import at module
 level, so GPU hosts without JAX can use it): the full structure (encoder,
 neck, three heads, scale MLP) on the ``dinov2_vitt14`` arch, as in
-``__graft_entry__.dryrun_multichip``; and the weight bridge from the JAX
-package's parameter trees to the port's state dicts."""
+``__graft_entry__.dryrun_multichip``; the weight bridge from the JAX
+package's parameter trees to the port's state dicts; a smooth distance
+field seen by the panorama's views; and a synthetic eval benchmark written
+with the port's codecs."""
 
 _HEAD = {
     "dim_in": [64, 32, 16, 16, 16], "dim_res_blocks": [64, 32, 16, 16, 16], "num_res_blocks": [0, 1, 1, 1, 0],
@@ -132,3 +134,71 @@ def v1_state_dict_from_jax_params(config, params):
     from moge_tpu.models.convert import export_moge1
 
     return _to_torch(export_moge1(config, params)["model"])
+
+
+def smooth_distance(directions):
+    """Smooth positive field on the sphere (tests/test_panorama.py's)."""
+    import numpy as np
+
+    x, y, z = directions[..., 0], directions[..., 1], directions[..., 2]
+    return 2.0 + 0.5 * z + 0.3 * np.sin(2 * x) * np.cos(y)
+
+
+def smooth_field_views(res=48, knock_out=False):
+    """Distance maps (12, res, res) float32 of ``smooth_distance`` as the
+    panorama's 12 views see it, and their masks (12, res, res) bool, every
+    third view with a block knocked out when ``knock_out``
+    (tests/test_panorama.py's inputs; the block scaled with ``res``)."""
+    import numpy as np
+
+    from moge_tpu_torch.panorama import _unproject, get_panorama_cameras
+    from moge_tpu_torch.utils.geometry_numpy import uv_map_numpy
+
+    uv = uv_map_numpy(res, res)
+    distance_maps, masks = [], []
+    for vi, (E, K) in enumerate(zip(*get_panorama_cameras())):
+        d = _unproject(uv, E, K)
+        distance_maps.append(smooth_distance(d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32))
+        m = np.ones((res, res), bool)
+        if knock_out and vi % 3 == 0:
+            m[res // 6:res * 5 // 12, res * 5 // 24:res * 5 // 8] = False
+        masks.append(m)
+    return np.stack(distance_maps), np.stack(masks)
+
+
+def write_benchmark(root, n_samples=3, hw=(60, 80), seed=0):
+    """A synthetic eval benchmark under ``root``, as
+    ``tests/test_eval_e2e.py::_write_benchmark`` writes it but with the
+    port's codecs (``moge_tpu_torch.utils.io``): per sample ``image.jpg``
+    (uniform noise), a log-PNG ``depth.png`` (a smooth 2..6 m ramp; sample 0
+    with a 5x5 corner of inf, the sky), ``meta.json`` (fx = 1), and for
+    sample 1 a ``segmentation.png`` with labels wall / floor / sky; then
+    ``.index.txt``. Returns the sample names."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from moge_tpu_torch.utils.io import write_depth, write_image, write_json, write_segmentation
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    names = []
+    for i in range(n_samples):
+        d = root / f"sample_{i}"
+        d.mkdir(parents=True)
+        write_image(d / "image.jpg", rng.uniform(0, 255, (h, w, 3)).astype(np.uint8))
+        yy, xx = np.mgrid[0:h, 0:w]
+        depth = (2.0 + 3.0 * yy / h + 0.5 * np.sin(xx * 80 / (7.0 * w))).astype(np.float32)
+        if i == 0:
+            depth[:5, :5] = np.inf
+        write_depth(d / "depth.png", depth)
+        write_json(d / "meta.json", {"intrinsics": [[1.0, 0.0, 0.5], [0.0, w / h, 0.5], [0.0, 0.0, 1.0]]})
+        if i == 1:
+            seg = np.zeros((h, w), np.uint16)
+            seg[:, w // 2:] = 1
+            seg[: h // 6, : w // 8] = 2
+            write_segmentation(d / "segmentation.png", seg, {"wall": 0, "floor": 1, "sky": 2})
+        names.append(d.name)
+    (root / ".index.txt").write_text("\n".join(names))
+    return names
