@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, serving, panorama, eval, training and probes on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, serving, panorama, eval, training (step and command) and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
 
 1. device: require CUDA, print the card's name and power limit, disable TF32;
+   then the host packages of the training loader (every cv2 name it uses,
+   PIL's LANCZOS, scipy's fftconvolve; each augmentation branch once);
 2. build the hand-written kernels from ``moge_tpu_torch/csrc`` (in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes plus ragged edges, with errors and median times: K1 (also
    by device time, beside F.layer_norm's, and at M = 1370 the host's time
    per call beside F.layer_norm's; each launch's variant checked: vec16 at
-   the ViT rows, scalar on a view with a storage offset), K2
+   the ViT rows and the giant's D = 1536, scalar on a view with a storage
+   offset), K2
    (and its logsumexp; B = 1 and 8 at the ViT token counts, B = 12 at the
    panorama's and B = 1 at eval's, times by CUDA events and by device time,
-   then kv_valid at the bf16 kernel's key-tile edges), K3 at every conv
+   then kv_valid at the bf16 kernel's key-tile edges, then the giant's 24
+   heads at B = 1), K3 at every conv
    shape of the ViT-L forwards of ``infer`` (batch 1, 1369 tokens), the
-   panorama (batch 12, 3600 tokens) and eval (480x640, 3600 tokens) (each
+   panorama (batch 12, 3600 tokens), eval (480x640, 3600 tokens) and the
+   training command's two extreme grids (batch 2, 1200 tokens, aspect 2:1
+   and 1:2) (each
    launch's variant checked, times by CUDA events and by device time, and
    per path K3 ms per forward against F.conv2d by device time; K1 also at
    the rows of those forwards), K3-grouped at the batched decoder heads' shapes (G=3,
@@ -74,7 +80,23 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    memory;
 10. training parity: ``moge-2-vits-normal``, one fp32 grad step on the card
     (kernels) against the CPU (plain versions) from the same weights, batch
-    and random draws: loss, every alignment solve and the gradients.
+    and random draws: loss, every alignment solve and the gradients;
+11. the training command: ``cli train`` in-process over a copy of
+    ``configs/train/v2.json`` whose datasets are synthetic (labels A, B, C,
+    metric and not, inf sky, NaN holes, the v2 per-dataset options), the
+    threaded augmenting loader, random sizes, ViT-L bf16 batch 2: 20 steps
+    and a checkpoint, the checkpoint loaded into a fresh state bit for bit,
+    one step on a fixed batch repeated from one state (the card's spread)
+    against the same step from the loaded state, ``infer`` from the
+    checkpoint's model.pt, ``--checkpoint latest`` for step 20, then 2 steps
+    of 2 micro-batches; launch counters per micro-batch; ms per step by
+    token count, seconds waiting for data, peak memory, checkpoint and
+    resume seconds;
+12. the giant: ``moge-2-vitl-normal`` on ``dinov2_vitg14`` (SwiGLU, 24
+    heads), random weights, bf16, 518^2 at 1369 tokens, launch counters,
+    warm latency and peak memory;
+13. ``vis_data --ply`` on one synthetic instance: one vertex per finite
+    depth pixel under ``--max_depth``.
 
 On every counted run of the paths below, each K1 launch must have taken the
 vec16 variant (``norm.VARIANT_LAUNCHES``), each K3 and K3-grouped launch a
@@ -87,9 +109,10 @@ serving, panorama, eval and training numbers, the card's name and power limit, a
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is its count
 summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
-forward for ``infer``, ``batched_heads`` and ``moge1_infer``, one batch for
-``serve``, one 12-view panorama for ``panorama``, one sample for ``eval``,
-one step for ``train``, the three tools' measurements for ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
+forward for ``infer``, ``batched_heads``, ``moge1_infer`` and ``giant``, one
+batch for ``serve``, one 12-view panorama for ``panorama``, one sample for
+``eval``, one step for ``train``, one micro-batch for ``train_cli``, the
+three tools' measurements for ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
 reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
 medians by CUDA events around each call for every kernel, and K1, K2,
 K2b-dq, K2b-dkv, K3, K3-grouped and T1 add ``device_ms``,
@@ -107,10 +130,12 @@ from __future__ import annotations
 
 import functools
 import json
+import random
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -188,6 +213,24 @@ PANO_CG_CARD_CPU = 1e-4  # CG on the card vs on the CPU: dot products summed in 
 EVAL_HW = (480, 640)
 EVAL_SAMPLES = 4
 EVAL_RTOL = 1e-5  # compute_metrics, card vs CPU on the same predictions
+# the training command (phase_train_cli): TRAIN_CONFIG with its datasets replaced by synthetic
+# ones (source images TRAIN_CLI_SRC_HW, TRAIN_CLI_INSTANCES per dataset) and steps 0-2 at the
+# low-resolution token count; run A takes TRAIN_CLI_STEPS steps (more than the loader holds in
+# its queues, so that the last ones wait on the loader's pace) and saves at the last, the resume
+# takes one more step, run B two steps of two micro-batches each
+TRAIN_CLI_BATCH = 2
+TRAIN_CLI_LOW_RES = 2
+TRAIN_CLI_STEPS = 20
+TRAIN_CLI_SRC_HW = (768, 1024)
+TRAIN_CLI_INSTANCES = 4
+RESUME_TOKENS = 1800  # the fixed batch's step, uninterrupted vs resumed
+RESUME_REPEATS = 2    # steps repeated from one state to measure the card's spread
+RESUME_MARGIN = 2.0   # the resumed step may differ by this multiple of the measured spread
+RESUME_RTOL = 1e-6    # ... or by this much relative when the spread is 0
+# the giant: moge-2-vitl-normal on dinov2_vitg14 (its four layers, its cls width into the scale head)
+GIANT_TOKENS = 1369
+GIANT_HW = 518
+VIS_MAX_DEPTH = 1.5  # vis_data -m: keep points nearer than 1.5 x the nearest depth
 
 
 def log(*args):
@@ -335,12 +378,12 @@ def phase_kernels():
 
     # K1 LayerNorm: tolerance one bf16 ulp at the output's largest magnitude; ViT-L rows at batch 1
     # and 8, those of the panorama's 12 views and of eval, and the ViT-T width on 37 rows (vec16),
-    # then a view with a storage offset (scalar)
+    # then a view with a storage offset (scalar), then the giant's width at batch 1 (vec16)
     k1 = []
     for m, d, offset, variant in ((1370, 1024, 0, "vec16"), (3601, 1024, 0, "vec16"),
                                   (8 * 3601, 1024, 0, "vec16"), (pano_b * pano_n, 1024, 0, "vec16"),
                                   (eval_b * eval_n, 1024, 0, "vec16"), (37, 192, 0, "vec16"),
-                                  (1370, 1024, 1, "scalar")):
+                                  (1370, 1024, 1, "scalar"), (GIANT_TOKENS + 1, 1536, 0, "vec16")):
         x = (randn(m * d + offset, scale=3.0) + 1.0)[offset:].view(m, d)
         s = torch.randn(d, generator=gen, device=dev)
         b = torch.randn(d, generator=gen, device=dev)
@@ -373,14 +416,16 @@ def phase_kernels():
     # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor, at the ViT
     # token counts (batch 1 and 8, the panorama's 12 views, eval) with device times, then kv_valid
     # at the bf16 kernel's key-tile edges (one key, a tile less one, a tile, a tile and one) for
-    # the errors alone
+    # the errors alone, then the giant's 24 heads at batch 1 (timed)
     bc = attention.KEY_TILE
     k2 = []
-    for b, n, kv_valid, timed in [(1, 1370, None, True), (1, 3601, None, True), (1, 1201, None, True),
-                                  (1, 1370, 1000, True), (8, 1370, None, True), (pano_b, pano_n, None, True),
-                                  (eval_b, eval_n, None, True)] + \
-                                 [(1, 1370, kv, False) for kv in (1, bc - 1, bc, bc + 1)]:
-        qkv = randn(b, n, 3, 16, 64)
+    for b, n, kv_valid, timed, heads in [(1, 1370, None, True, 16), (1, 3601, None, True, 16),
+                                         (1, 1201, None, True, 16), (1, 1370, 1000, True, 16),
+                                         (8, 1370, None, True, 16), (pano_b, pano_n, None, True, 16),
+                                         (eval_b, eval_n, None, True, 16)] + \
+                                        [(1, 1370, kv, False, 16) for kv in (1, bc - 1, bc, bc + 1)] + \
+                                        [(1, GIANT_TOKENS + 1, None, True, 24)]:
+        qkv = randn(b, n, 3, heads, 64)
         q, k, v = qkv[:, :, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
         before = attention.VARIANT_LAUNCHES["wgmma"]
         got, got_lse = attention.flash_attention_fwd(q, k, v, kv_valid)
@@ -390,14 +435,14 @@ def phase_kernels():
         err = (got.float() - want).abs().max().item()
         lse_err = (got_lse - want_lse).abs().max().item()
         kv = kv_valid or n
-        label = f"B={b} H=16 N={n} kv_valid={kv}"
+        label = f"B={b} H={heads} N={n} kv_valid={kv}"
         line = (f"[K2] {label}: max_abs_err {err:.3e} (tol {K2_MAX_ABS}), lse max_abs_err {lse_err:.3e} "
                 f"(tol {K2_LSE_ABS}), out max {want.abs().max().item():.3f}")
         case = (err, None, None, None, None)
         if timed:
             ms, plain_ms, lib_ms, dev_ms = attention_times(q, k, v, kv_valid)
-            bnd = bound(bf16, flops=4 * b * 16 * n * kv * 64, mufu=b * 16 * n * kv,
-                        bytes_moved=2 * b * 16 * 64 * 2 * (n + kv) + b * 16 * n * 4)
+            bnd = bound(bf16, flops=4 * b * heads * n * kv * 64, mufu=b * heads * n * kv,
+                        bytes_moved=2 * b * heads * 64 * 2 * (n + kv) + b * heads * n * 4)
             line += f", {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'SDPA flash')}; bound {bnd[0]:.4f} ms ({bnd[1]})"
             case = (err, ms, plain_ms, lib_ms, bnd, dev_ms)
         log(line)
@@ -421,14 +466,18 @@ def path_grids() -> dict:
     forward of each inference path this script counts: the main path (518^2
     at 1369 tokens), the panorama (12 views at PANO_SPLIT^2, resolution level
     PANO_LEVEL) and eval (EVAL_HW at resolution level 9, the adapter's
-    default)."""
+    default); then the training command's two extreme grids at its
+    low-resolution 1200 tokens, aspect 2:1 and 1:2 (the ends of v2.json's
+    aspect_ratio_range), at its batch."""
     from moge_tpu_torch.models.presets import get_preset
     from moge_tpu_torch.models.v2 import base_token_grid
 
     lo, hi = get_preset("moge-2-vitl-normal")["config"]["num_tokens_range"]
     tokens = {level: int(lo + (level / 9) * (hi - lo)) for level in (PANO_LEVEL, 9)}
     return {"infer": (1, base_token_grid(1369, 1.0)), "panorama": (12, base_token_grid(tokens[PANO_LEVEL], 1.0)),
-            "eval": (1, base_token_grid(tokens[9], EVAL_HW[1] / EVAL_HW[0]))}
+            "eval": (1, base_token_grid(tokens[9], EVAL_HW[1] / EVAL_HW[0])),
+            "train_cli 2:1": (TRAIN_CLI_BATCH, base_token_grid(lo, 2.0)),
+            "train_cli 1:2": (TRAIN_CLI_BATCH, base_token_grid(lo, 0.5))}
 
 
 def k3_shapes(grid_h: int, grid_w: int) -> list:
@@ -486,8 +535,9 @@ def conv_times_text(ms, plain_ms, lib_ms, dev_ms, library="F.conv2d"):
 def conv_cases(gen):
     """K3 (bf16) against its plain version at every shape of the main path's
     forward (batch 1, 1369 tokens), then at ragged ones, then at every shape
-    of the panorama's (12 views, 3600 tokens) and of eval's (480x640, 3600
-    tokens) forwards (``path_grids``); times (``conv_times``) of the kernel,
+    of the panorama's (12 views, 3600 tokens), eval's (480x640, 3600 tokens)
+    and the training command's two extreme grids (batch 2, 1200 tokens,
+    aspect 2:1 and 1:2) forwards (``path_grids``); times (``conv_times``) of the kernel,
     the plain version and F.conv2d; then per path K3 ms per forward by
     device time, kernel against library: each shape's launches per forward
     x its time, and their sums."""
@@ -502,7 +552,8 @@ def conv_cases(gen):
     want = expected_launches(get_preset("moge-2-vitl-normal")["config"])["conv3x3"]
     runs = [("infer", grids["infer"][0], k3_shapes(*grids["infer"][1])),
             (None, 1, [(*r, False, 0) for r in K3_RAGGED])] + \
-           [(path, grids[path][0], k3_shapes(*grids[path][1])) for path in ("panorama", "eval")]
+           [(path, grids[path][0], k3_shapes(*grids[path][1]))
+            for path in ("panorama", "eval", "train_cli 2:1", "train_cli 1:2")]
     cases = []
     for path, batch, shapes in runs:
         per_forward = {}
@@ -1821,6 +1872,421 @@ def phase_train_parity():
         raise AssertionError(f"gradients card vs CPU relative L2 {grad_rel} > {PARITY_GRAD_RTOL}")
 
 
+def phase_host_packages():
+    """The host packages the training loader needs, on the card's host: every
+    cv2 function and flag that ``utils/data_augmentation.py``,
+    ``geometry_numpy.depth_of_field`` and the loader use, PIL's LANCZOS
+    resampling and scipy's fftconvolve (the run fails naming what is
+    missing), then the augmentation itself once per branch."""
+    import cv2
+    import numpy as np
+    import PIL
+    import scipy
+    from PIL import Image
+
+    from moge_tpu_torch.utils.data_augmentation import image_color_augmentation, warp_perspective
+
+    need = ["warpPerspective", "INTER_NEAREST", "INTER_LINEAR", "INTER_LANCZOS4", "INTER_LINEAR_EXACT",
+            "INTER_CUBIC", "INTER_AREA", "inpaint", "INPAINT_TELEA", "imencode", "imdecode", "IMWRITE_JPEG_QUALITY",
+            "IMREAD_COLOR", "cvtColor", "COLOR_RGB2HSV", "COLOR_HSV2RGB", "COLOR_BGR2RGB", "COLOR_RGB2BGR",
+            "dilate", "getStructuringElement", "MORPH_ELLIPSE", "blur", "resize"]
+    missing = [f"cv2.{n}" for n in need if not hasattr(cv2, n)]
+    if not hasattr(getattr(Image, "Resampling", None), "LANCZOS"):
+        missing.append("PIL.Image.Resampling.LANCZOS")
+    try:
+        from scipy.signal import fftconvolve  # noqa: F401
+    except ImportError:
+        missing.append("scipy.signal.fftconvolve")
+    if missing:
+        raise AssertionError(f"the training loader needs {missing} (cv2 {cv2.__version__}, PIL {PIL.__version__}, "
+                             f"scipy {scipy.__version__})")
+    rng = np.random.default_rng(SEED)
+    image = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    depth = rng.uniform(1, 5, (96, 128)).astype(np.float32)
+    depth[10:20, 10:20] = np.nan
+    shrink = np.diag([0.5, 0.5, 1.0]).astype(np.float32)
+    warped = warp_perspective(image, shrink, (48, 64), interpolation="lanczos")
+    changed = {}
+    for branch in ("jittering", "dof", "shot_noise", "blurring", "jpeg_loss"):
+        outs = [image_color_augmentation(image, [branch], np.random.default_rng(seed), depth) for seed in range(6)]
+        changed[branch] = sum(not np.array_equal(o, image) for o in outs)
+        if not changed[branch] or any(o.shape != image.shape or o.dtype != np.uint8 for o in outs):
+            raise AssertionError(f"augmentation {branch} did nothing or changed the image's shape or type")
+    log(f"[host] cv2 {cv2.__version__}, PIL {PIL.__version__}, scipy {scipy.__version__}, numpy {np.__version__}: "
+        f"the loader's {len(need)} cv2 names present; lanczos warp {warped.shape}, augmentations changed the "
+        f"image in {changed} of 6 seeds")
+
+
+def train_cli_config(tmp: Path) -> Path:
+    """TRAIN_CONFIG with ``data.datasets`` replaced by the synthetic datasets
+    (``write_train_dataset``: labels A, B and C, depth_unit 1 / 0.001 / none,
+    only_known, dof and shot_noise, completed-depth files, inf sky and NaN
+    holes) and ``low_resolution_training_steps`` TRAIN_CLI_LOW_RES; model,
+    optimizer, LR schedule, losses and the rest of the data section as they
+    are. Returns the written config's path."""
+    from torch_tiny_config import write_train_dataset
+
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    cfg["data"]["datasets"] = write_train_dataset(tmp / "data", n_instances=TRAIN_CLI_INSTANCES,
+                                                  hw=TRAIN_CLI_SRC_HW, seed=SEED)
+    cfg["low_resolution_training_steps"] = TRAIN_CLI_LOW_RES
+    path = tmp / "train.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_train_cli(config_path: Path, workspace: Path, expect: dict, accumulation: int, label: str, *extra):
+    """``cli train`` in-process on the card with the counters set to 0 just
+    before and read just after; the launches must be the expected count per
+    micro-batch times the micro-batches, every one on its Hopper variant.
+    Returns (the command's result, this run's steps.jsonl lines, wall s,
+    peak GiB, micro-batches)."""
+    import math
+
+    import torch
+
+    from moge_tpu_torch.scripts import cli
+
+    args = ["train", "--config", str(config_path), "--workspace", str(workspace), "--batch_size_forward",
+            str(TRAIN_CLI_BATCH), "--gradient_accumulation_steps", str(accumulation), "--log_every", "1",
+            "--seed", str(SEED), "--device", DEVICE, *extra]
+    before = len((workspace / "steps.jsonl").read_text().splitlines()) if (workspace / "steps.jsonl").exists() else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = cli.command().main(args, standalone_mode=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    lines = [json.loads(x) for x in (workspace / "steps.jsonl").read_text().splitlines()[before:]]
+    metrics = [json.loads(x) for x in (workspace / "metrics.jsonl").read_text().splitlines()[before:]]
+    micro = len(lines) * accumulation
+    want = {k: v * micro for k, v in expect.items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} over {micro} micro-batches, expected {want}")
+    check_variants("train_cli", label, counts, runs=micro)
+    if [m["step"] for m in metrics] != [x["step"] for x in lines] or \
+            [x["step"] for x in lines] != [x["step"] for x in result["steps"]]:
+        raise AssertionError(f"{label}: steps.jsonl {lines}, metrics.jsonl {metrics}")
+    for x, m in zip(lines, metrics):
+        if not ({"num_tokens", "t", "data_wait"} <= set(x) and math.isfinite(x["total"]) and m["grads_ok"] == 1.0
+                and len(x["sizes"]) == accumulation):
+            raise AssertionError(f"{label}: step {x['step']}: {x}, grads_ok {m['grads_ok']}")
+    log(f"[train_cli] {label}: {len(lines)} steps of {accumulation} micro-batch(es) in {wall_s:.1f} s, peak "
+        f"{peak_gib:.2f} GiB; per step (tokens, sizes, label types, s, s waiting for data, loss): "
+        + "; ".join(f"{x['num_tokens']} {x['sizes']} {x['label_types']} {x['t']:.3f} {x['data_wait']:.3f} "
+                    f"{x['total']:.4f}" for x in lines))
+    return result, lines, wall_s, peak_gib, micro
+
+
+def train_state_tensors(state, gen) -> dict:
+    """Every tensor of a train state on its device, by name (the module's
+    state dict, AdamW's moments and steps, the EMA), and its scalars
+    (step, update count, learning rates, generator state)."""
+    named = {f"model.{k}": v for k, v in state.module.state_dict().items()}
+    for i, per in state.optimizer.adamw.state_dict()["state"].items():
+        named.update({f"adamw.{i}.{k}": v for k, v in per.items()})
+    named.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+    scalars = {"step": state.step, "count": state.optimizer.count, "lrs": state.optimizer.lrs(),
+               "gen": gen.get_state().tolist()}
+    return {"tensors": named, "scalars": scalars}
+
+
+def state_distance(a: dict, b: dict) -> dict:
+    """Per part of the state (model, adamw, ema), the L2 norm of a - b over
+    all its tensors; and whether every tensor and scalar is bit-identical."""
+    import torch
+
+    if a["tensors"].keys() != b["tensors"].keys():
+        raise AssertionError("train states with different tensors")
+    sq = {}
+    identical = a["scalars"] == b["scalars"]
+    for k, x in a["tensors"].items():
+        y = b["tensors"][k]
+        identical &= torch.equal(x, y)
+        part = k.split(".")[0]
+        sq[part] = sq.get(part, 0.0) + (x.double() - y.double()).square().sum().item()
+    return {"l2": {p: v ** 0.5 for p, v in sq.items()}, "identical": identical}
+
+
+def phase_train_cli(card: str):
+    """The training command at full width through ``cli train`` (click's
+    standalone_mode=False) on the card: TRAIN_CONFIG (v2.json: moge-2-vitl-
+    normal from random weights, bf16 compute, fp32 parameters) over the
+    synthetic datasets (``train_cli_config``), batch 2, the threaded
+    augmenting loader and random sizes. Run A: TRAIN_CLI_STEPS steps, a
+    checkpoint at the last. The checkpoint loads into a fresh state bit for bit equal to the
+    command's; one step on a fixed batch, repeated from that state, measures
+    the card's spread, and the same step from the loaded state must fall
+    within it. The checkpoint's model.pt runs ``infer``. ``--checkpoint
+    latest`` resumes it for one more step. Run B: two steps of two
+    micro-batches.
+    Launch counters over each command, per micro-batch."""
+    import shutil
+    import statistics as st
+
+    import torch
+
+    from moge_tpu_torch.models.io import load_train_checkpoint, restore_train_state, snapshot_train_state
+    from moge_tpu_torch.models.v2 import MoGeModel, MoGeV2
+    from moge_tpu_torch.scripts.train import batch_to_device
+    from moge_tpu_torch.train.dataloader import TrainDataLoaderPipeline
+    from moge_tpu_torch.train.step import init_train_state, make_train_step
+    from moge_tpu_torch.train.utils import build_optimizer
+
+    dev = torch.device(DEVICE)
+    root = ROOT / "workspace"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=root))
+    try:
+        config_path = train_cli_config(tmp)
+        cfg = json.loads(config_path.read_text())
+        expect = expected_train_launches(cfg["model"], cfg["loss"])
+        lo = cfg["model"]["num_tokens_range"][0]
+        ws = tmp / "run_a"
+        res_a, lines_a, wall_a, peak_a, micro_a = run_train_cli(
+            config_path, ws, expect, 1, "run A", "--num_iterations", str(TRAIN_CLI_STEPS),
+            "--save_every", str(TRAIN_CLI_STEPS - 1))
+        if [x["num_tokens"] for x in lines_a[:TRAIN_CLI_LOW_RES + 1]] != [lo] * (TRAIN_CLI_LOW_RES + 1) or \
+                any(x["num_tokens"] != lo and x["num_tokens"] % 100 for x in lines_a):  # the default quantum
+            raise AssertionError(f"run A: token counts {[x['num_tokens'] for x in lines_a]}")
+        ckpt = ws / "checkpoints" / str(TRAIN_CLI_STEPS - 1)
+        files = sorted(str(p.relative_to(ws / "checkpoints")) for p in (ws / "checkpoints").rglob("*.pt"))
+        if files != [f"{ckpt.name}/model.pt", f"{ckpt.name}/train_state.pt", f"{ckpt.name}_ema/model.pt"]:
+            raise AssertionError(f"run A wrote checkpoint files {files}")
+        saves = res_a["saves"]
+
+        # round trip: the checkpoint into a fresh state, bit for bit the command's
+        live, live_gen = res_a["state"], res_a["gen"]
+        t0 = time.perf_counter()
+        with dev:
+            module = MoGeV2(**cfg["model"])
+        fresh = init_train_state(module, build_optimizer(module, cfg["optimizer"], cfg["lr_scheduler"]))
+        fresh_gen = torch.Generator(device=dev)
+        load_train_checkpoint(ckpt, fresh, fresh_gen)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        trip = state_distance(train_state_tensors(live, live_gen), train_state_tensors(fresh, fresh_gen))
+        log(f"[train_cli] checkpoint {ckpt.name} loaded into a fresh state in {resume_s:.2f} s: bit-identical "
+            f"{trip['identical']} (params, AdamW moments and steps, EMA, update count {fresh.optimizer.count}, "
+            f"learning rates {fresh.optimizer.lrs()}, generator state)")
+        if not trip["identical"]:
+            raise AssertionError(f"checkpoint round trip differs: {trip}")
+
+        # the card's spread: one step on a fixed batch, repeated from one state
+        with TrainDataLoaderPipeline(cfg["data"], TRAIN_CLI_BATCH, random.Random(SEED + 7), 32) as pipe:
+            batch = batch_to_device(pipe.get(), sorted(cfg["loss"]), dev)
+        fixed_hw = list(batch["image"].shape[1:3])
+        label_types = sorted(cfg["loss"])
+
+        fixed_ms = []  # the same step with no loader running
+
+        def step(state, gen):
+            train_step = make_train_step(state.module, state.optimizer, cfg["loss"], label_types, RESUME_TOKENS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch, gen)
+            ok = float(metrics["grads_ok"])
+            torch.cuda.synchronize()
+            fixed_ms.append((time.perf_counter() - t0) * 1e3)
+            if ok != 1.0:
+                raise AssertionError("the fixed batch's step skipped its update")
+            return train_state_tensors(state, gen)
+
+        snap = snapshot_train_state(live, live_gen)
+        out = step(live, live_gen)
+        first = {"tensors": {k: v.clone() for k, v in out["tensors"].items()}, "scalars": out["scalars"]}
+        spread = []
+        for _ in range(RESUME_REPEATS):
+            restore_train_state(live, live_gen, snap)
+            spread.append(state_distance(first, step(live, live_gen)))
+        resumed = state_distance(first, step(fresh, fresh_gen))
+        worst = {p: max(d["l2"][p] for d in spread) for p in resumed["l2"]}
+        if all(d["identical"] for d in spread):
+            norm = {p: max(sum(v.double().square().sum().item() for k, v in first["tensors"].items()
+                               if k.split(".")[0] == p) ** 0.5, 1e-30) for p in worst}
+            case = f"spread 0 (the repeats bit-identical): resumed within {RESUME_RTOL} relative L2"
+            ok = all(resumed["l2"][p] <= RESUME_RTOL * norm[p] for p in worst)
+        else:
+            case = f"spread > 0: resumed within {RESUME_MARGIN} x the largest of {RESUME_REPEATS} repeats"
+            ok = all(resumed["l2"][p] <= RESUME_MARGIN * worst[p] for p in worst)
+        log(f"[train_cli] step {TRAIN_CLI_STEPS} on a fixed batch of {fixed_hw} at {RESUME_TOKENS} tokens (ms, no "
+            f"loader running: {[round(t, 1) for t in fixed_ms]}): L2 distance to the "
+            f"uninterrupted step, repeats {[d['l2'] for d in spread]} (bit-identical {[d['identical'] for d in spread]}), "
+            f"resumed {resumed['l2']} (bit-identical {resumed['identical']}); {case}: {ok}")
+        if not ok:
+            raise AssertionError(f"the resumed step is outside the card's spread: {resumed['l2']} vs {worst}")
+        # the same step once more while a fresh loader fills its queues: its 12 threads share the host
+        with TrainDataLoaderPipeline(cfg["data"], TRAIN_CLI_BATCH, random.Random(SEED + 8), 32):
+            step(live, live_gen)
+        filling_ms = fixed_ms.pop()
+        log(f"[train_cli] the fixed batch's step while a loader fills its queues: {filling_ms:.1f} ms (alone "
+            f"{statistics.median(fixed_ms):.1f})")
+        del live, fresh, module, first, out, snap, batch, res_a
+        torch.cuda.empty_cache()
+
+        # the checkpoint's model.pt is an inference checkpoint
+        model = MoGeModel.from_pretrained(ckpt / "model.pt", device=DEVICE, dtype=torch.bfloat16)
+        image = torch.rand(GIANT_HW, GIANT_HW, 3, generator=torch.Generator().manual_seed(SEED)).to(dev)
+        out = model.infer(image, num_tokens=1369)
+        if out["depth"].shape != (GIANT_HW, GIANT_HW) or not torch.isfinite(out["intrinsics"]).all():
+            raise AssertionError(f"infer from the training checkpoint: {out['depth'].shape}, {out['intrinsics']}")
+        del model, out
+        torch.cuda.empty_cache()
+
+        res_r, lines_r, wall_r, _, micro_r = run_train_cli(config_path, ws, expect, 1, "resume (--checkpoint latest)",
+                                                           "--num_iterations", str(TRAIN_CLI_STEPS + 1),
+                                                           "--checkpoint", "latest")
+        if [x["step"] for x in lines_r] != [TRAIN_CLI_STEPS] or res_r["state"].optimizer.count != TRAIN_CLI_STEPS + 1:
+            raise AssertionError(f"resume ran steps {[x['step'] for x in lines_r]}, "
+                                 f"{res_r['state'].optimizer.count} updates")
+        saves += res_r["saves"]
+        del res_r
+        shutil.rmtree(ws)
+        torch.cuda.empty_cache()
+
+        res_b, lines_b, wall_b, peak_b, micro_b = run_train_cli(config_path, tmp / "run_b", expect, 2,
+                                                                "run B (accumulation 2)", "--num_iterations", "2",
+                                                                "--save_every", "1000")
+        if res_b["state"].optimizer.count != 2:
+            raise AssertionError(f"run B took {res_b['state'].optimizer.count} optimizer steps, not 2")
+        saves += res_b["saves"]
+        del res_b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    lines = lines_a + lines_r + lines_b
+    kinds = {lt for x in lines for b in x["label_types"] for lt in b if lt != "invalid"}
+    sizes = {tuple(hw) for x in lines for hw in x["sizes"]}
+    if len(kinds) < 2 or len(sizes) < 2:
+        raise AssertionError(f"the batches had label types {kinds} and sizes {sizes}: not mixed")
+    # run A's steps after its first two: a run's first steps share the host with the loader's
+    # threads filling their queues (their times are reported apart)
+    warm = lines_a[2:]
+    by_tokens = {}
+    for x in warm:
+        by_tokens.setdefault(x["num_tokens"], []).append(x)
+    stats = {
+        "ms_per_step_by_tokens": {n: st.median(1e3 * x["t"] for x in xs) for n, xs in sorted(by_tokens.items())},
+        "compute_ms_per_step_by_tokens": {n: st.median(1e3 * (x["t"] - x["data_wait"]) for x in xs)
+                                          for n, xs in sorted(by_tokens.items())},
+        "first_steps_s": {"run_a": [x["t"] for x in lines_a[:2]], "resume": [x["t"] for x in lines_r],
+                          "run_b": [x["t"] for x in lines_b[:1]]},
+        "data_wait_s": [x["data_wait"] for x in lines], "step_s": [x["t"] for x in lines],
+        "num_tokens": [x["num_tokens"] for x in lines], "sizes": [x["sizes"] for x in lines],
+        "accumulation_2_ms_per_step": [1e3 * x["t"] for x in lines_b],
+        "peak_gib": {"run_a": peak_a, "run_b": peak_b}, "wall_s": {"run_a": wall_a, "resume": wall_r, "run_b": wall_b},
+        "checkpoint_snapshot_s": [x["snapshot_s"] for x in saves], "checkpoint_write_s": [x["write_s"] for x in saves],
+        "resume_load_s": resume_s, "resume_case": case, "label_types": sorted(kinds),
+        "fixed_batch_step_ms": fixed_ms, "fixed_batch_hw": fixed_hw, "fixed_batch_step_ms_loader_filling": filling_ms,
+    }
+    log(f"[train_cli] moge-2-vitl-normal batch {TRAIN_CLI_BATCH}, {len(lines)} steps over label types {sorted(kinds)} "
+        f"and {len(sizes)} sizes: ms per step by tokens (median of run A's steps after its first two) "
+        f"{stats['ms_per_step_by_tokens']}, of it not waiting for data {stats['compute_ms_per_step_by_tokens']}; "
+        f"first steps of each run, s {stats['first_steps_s']}; s waiting for data per step "
+        f"{stats['data_wait_s']}; accumulation 2: ms per step {stats['accumulation_2_ms_per_step']}; peak "
+        f"{peak_a:.2f} / {peak_b:.2f} GiB; checkpoint snapshot s {stats['checkpoint_snapshot_s']}, write s "
+        f"{stats['checkpoint_write_s']}; resume load {resume_s:.2f} s ({card})")
+    return (expect, micro_a + micro_r + micro_b), stats
+
+
+def giant_config() -> dict:
+    """moge-2-vitl-normal on the giant DINOv2 (dinov2_vitg14, its layers 9,
+    19, 29 and 39), the scale head reading its 1536-wide cls token."""
+    from moge_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset("moge-2-vitl-normal")["config"]
+    cfg["encoder"].update(backbone="dinov2_vitg14", intermediate_layers=[9, 19, 29, 39])
+    cfg["scale_head"]["dims"][0] = 1536
+    return cfg
+
+
+def phase_giant(card: str):
+    """The giant arch through ``MoGeModel.infer``: random weights from SEED,
+    bf16, GIANT_HW^2 at GIANT_TOKENS tokens, batch 1; a warm-up, one counted
+    run (launches, variants, keys, shapes, finiteness), then warm latency and
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.v2 import MoGeModel
+
+    cfg = giant_config()
+    expect = expected_launches(cfg)
+    t0 = time.perf_counter()
+    model = MoGeModel(cfg, device=DEVICE, dtype=torch.bfloat16).init_random(seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.module.parameters())
+    rng = np.random.default_rng(SEED + 5)
+    image = torch.from_numpy(rng.uniform(0, 1, (GIANT_HW, GIANT_HW, 3)).astype(np.float32)).to(DEVICE)
+    model.infer(image, num_tokens=GIANT_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = model.infer(image, num_tokens=GIANT_TOKENS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts != expect:
+        raise AssertionError(f"giant infer: launches {counts}, expected {expect}")
+    variants = check_variants("giant", "giant infer", counts)
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    h = w = GIANT_HW
+    want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w), "normal": (h, w, 3)}
+    mask = out["mask"]
+    if shapes != want or not torch.isfinite(out["intrinsics"]).all() or \
+            not torch.isfinite(out["depth"][mask]).all() or not torch.isfinite(out["points"][mask]).all():
+        raise AssertionError(f"giant infer: shapes {shapes} (expected {want}), or non-finite output")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.infer(image, num_tokens=GIANT_TOKENS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    stats = {"params": params, "init_s": init_s, "ms": statistics.median(times), "ms_all": times,
+             "peak_gib": peak_gib}
+    log(f"[giant] moge-2 on dinov2_vitg14, {params} parameters (init {init_s:.1f} s), {h}x{w} at {GIANT_TOKENS} "
+        f"tokens bf16: mask {mask.float().mean().item():.3f} of pixels, launches {counts}, variants {variants}, warm "
+        f"median {stats['ms']:.2f} ms of {[round(t, 2) for t in times]}, peak {peak_gib:.2f} GiB ({card})")
+    del model
+    torch.cuda.empty_cache()
+    return (expect, 1), stats
+
+
+def phase_vis_data():
+    """``cli vis_data --ply`` on one synthetic training instance (SynthA,
+    480x640, inf sky and a NaN hole): the PLY holds one vertex per finite
+    depth pixel nearer than VIS_MAX_DEPTH times the nearest (the card host
+    has no matplotlib, so no colorized depth)."""
+    import numpy as np
+
+    from moge_tpu_torch.scripts import cli
+    from moge_tpu_torch.utils.io import read_depth
+    from torch_tiny_config import write_train_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = write_train_dataset(Path(tmp) / "data", n_instances=1, hw=(480, 640), seed=SEED)[0]
+        folder = Path(ds["path"]) / "instance_0"
+        out = Path(tmp) / "out"
+        cli.command().main(["vis_data", str(folder), "--ply", "-m", str(VIS_MAX_DEPTH), "-o", str(out)],
+                           standalone_mode=False)
+        header = (out / "pointcloud.ply").read_bytes().split(b"end_header\n")[0].decode()
+        got = int(header.split("element vertex ")[1].split()[0])
+        depth = read_depth(folder / "depth.png")
+        finite = np.isfinite(depth)
+        want = int((finite & (depth < depth[finite].min() * VIS_MAX_DEPTH)).sum())
+        files = sorted(p.name for p in out.iterdir())
+    log(f"[vis_data] {folder.name} 480x640: {files}, {got} vertices, {want} finite depth pixels nearer than "
+        f"{VIS_MAX_DEPTH} x the nearest ({int(finite.sum())} finite)")
+    if got != want or files != ["pointcloud.ply"] or not 0 < want < finite.sum():
+        raise AssertionError(f"vis_data: {got} vertices, {want} expected, files {files}")
+
+
 KERNELS = [
     ("layer_norm", "moge_tpu_torch/csrc/layernorm.cu", "moge_tpu/ops/norm.py:40"),
     ("flash_attention", "moge_tpu_torch/csrc/flash_attn.cu", "moge_tpu/ops/attention.py:57"),
@@ -1853,7 +2319,8 @@ def main() -> int:
     if not (ROOT / "moge_tpu_torch").is_dir():
         raise RuntimeError(f"moge_tpu_torch/ not found beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
-    sys.path.append(str(ROOT / "tests"))  # torch_tiny_config.make_points_perspective
+    sys.path.append(str(ROOT / "tests"))  # torch_tiny_config: make_points_perspective, the synthetic datasets
+    phase_host_packages()
     from moge_tpu_torch.tools import roofline
 
     CLOCK_HZ = roofline.sm_clock_hz()
@@ -1882,6 +2349,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["train"], train_steps = phase_train(card)
     phase_train_parity()
+    torch.cuda.empty_cache()
+    launches["train_cli"], train_cli_stats = phase_train_cli(card)
+    launches["giant"], giant_stats = phase_giant(card)
+    phase_vis_data()
     kernels = []
     for name, source, replaces in KERNELS:
         cases = kernel_results[name]
@@ -1899,7 +2370,8 @@ def main() -> int:
                         **variants})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
                       "serve": serve_stats, "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
-                      "eval": eval_stats, "train_steps": train_steps,
+                      "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
+                      "giant": giant_stats,
                       "probes": probe_tables}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

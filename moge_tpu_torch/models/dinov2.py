@@ -1,7 +1,8 @@
 """DINOv2 vision transformer (port of moge_tpu/models/dinov2.py).
 
 The paths MoGe uses: patch embed -> bicubic-interpolated pos-embed (with
-the historical 0.1 offset) -> pre-LN blocks with LayerScale ->
+the historical 0.1 offset) -> pre-LN blocks with LayerScale (the MLP ffn,
+or for the giant the fused SwiGLU) ->
 ``get_intermediate_layers`` with the shared final LayerNorm. Parameter
 names are the torch DINOv2 state-dict names, so a reference checkpoint (or
 ``moge_tpu.models.convert.export_dinov2_backbone``) loads strictly.
@@ -37,15 +38,26 @@ class ViTConfig:
     patch_size: int = 14
     pos_grid: int = 37  # img_size 518 / patch 14
     interpolate_offset: float = 0.1
+    ffn: str = "mlp"  # "mlp" | "swiglu"
+
+    @property
+    def mlp_hidden(self) -> int:
+        """The ffn's hidden width; SwiGLUFFNFused sizes it 2/3 * 4d, rounded
+        up to a multiple of 8 (reference dinov2/layers/swiglu_ffn.py)."""
+        hidden = int(self.embed_dim * self.mlp_ratio)
+        if self.ffn == "swiglu":
+            hidden = (int(self.embed_dim * self.mlp_ratio * 2 / 3) + 7) // 8 * 8
+        return hidden
 
 
-# Hub architectures (LayerScale, MLP ffn, no register tokens);
-# ``dinov2_vitt14`` is the tiny test arch (no checkpoint). The giant (SwiGLU)
-# arch is not ported yet.
+# Hub architectures (LayerScale, no register tokens; the giant with the fused
+# SwiGLU ffn, the others the MLP); ``dinov2_vitt14`` is the tiny test arch (no
+# checkpoint).
 VIT_ARCHS = {
     "dinov2_vits14": ViTConfig(embed_dim=384, depth=12, num_heads=6),
     "dinov2_vitb14": ViTConfig(embed_dim=768, depth=12, num_heads=12),
     "dinov2_vitl14": ViTConfig(embed_dim=1024, depth=24, num_heads=16),
+    "dinov2_vitg14": ViTConfig(embed_dim=1536, depth=40, num_heads=24, ffn="swiglu"),
     "dinov2_vitt14": ViTConfig(embed_dim=192, depth=4, num_heads=3),
 }
 
@@ -107,14 +119,30 @@ class Mlp(nn.Module):
         return self.fc2(h)
 
 
+class SwiGLU(nn.Module):
+    """SwiGLUFFNFused (the giant arch): one fused linear to 2 x hidden, split
+    into x1 and x2, then ``w3(silu(x1) * x2)``."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_hidden: int):
+    def __init__(self, dim: int, num_heads: int, mlp_hidden: int, ffn: str = "mlp"):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, mlp_hidden)
+        if ffn not in ("mlp", "swiglu"):
+            raise ValueError(f"unknown ffn {ffn!r}")
+        self.mlp = SwiGLU(dim, mlp_hidden) if ffn == "swiglu" else Mlp(dim, mlp_hidden)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -153,8 +181,8 @@ class DinoVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, config.pos_grid ** 2 + 1, dim))
         # unused by MoGe (so not trained); kept for the checkpoint layout
         self.mask_token = nn.Parameter(torch.zeros(1, dim), requires_grad=False)
-        mlp_hidden = int(dim * config.mlp_ratio)
-        self.blocks = nn.ModuleList(Block(dim, config.num_heads, mlp_hidden) for _ in range(config.depth))
+        self.blocks = nn.ModuleList(Block(dim, config.num_heads, config.mlp_hidden, config.ffn)
+                                    for _ in range(config.depth))
         self.norm = LayerNorm(dim)
 
     def interpolate_pos_encoding(self, h0: int, w0: int, dtype: torch.dtype) -> torch.Tensor:

@@ -127,6 +127,26 @@ class Optimizer:
                 self.params[name].grad = None
         self.count += 1
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The update count (the schedules' step) and AdamW's state dict
+        (moments and step per parameter; references, not copies)."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a ``state_dict`` of an optimizer built from the same
+        module and config (AdamW moves the moments to the parameters'
+        device). The optimizer keeps no tensor of ``state``: AdamW takes a
+        tensor already on its parameter's device and dtype (and the step
+        counts always) as it is, and would update it in place."""
+        given = {v.data_ptr() for per in state["adamw"]["state"].values() for v in per.values()
+                 if isinstance(v, torch.Tensor)}
+        self.adamw.load_state_dict(state["adamw"])
+        for per in self.adamw.state.values():
+            for k, v in per.items():
+                if isinstance(v, torch.Tensor) and v.data_ptr() in given:
+                    per[k] = v.clone()
+        self.count = int(state["count"])
+
 
 def build_optimizer(module: nn.Module, optimizer_config: Dict[str, Any],
                     lr_scheduler_config: Optional[Dict[str, Any]] = None,

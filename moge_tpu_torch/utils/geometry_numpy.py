@@ -1,7 +1,8 @@
-"""Host-side numpy geometry of the CLI, the panorama and the eval loader:
-the pixel-center uv map, intrinsics from and to a field of view, depth to
-points and normals, occlusion and normal edges, the masked nearest resize,
-OpenCV-convention projection, and the 2D helpers of the loader's crop.
+"""Host-side numpy geometry of the CLI, the panorama, the eval loader and
+the training loader: the pixel-center uv map, intrinsics from and to a field
+of view, depth to points and normals, occlusion and normal edges, the masked
+nearest resize, OpenCV-convention projection, the 2D helpers of the loaders'
+crop and warp, and the depth-of-field blur of the training augmentation.
 Copies of the matching functions of the JAX package's
 ``moge_tpu/utils/geometry_numpy.py``."""
 
@@ -13,9 +14,9 @@ import numpy as np
 
 __all__ = ["uv_map_numpy", "focal_to_fov_numpy", "fov_to_focal_numpy", "intrinsics_to_fov_numpy",
            "intrinsics_from_focal_center_numpy", "intrinsics_from_fov_numpy", "depth_map_to_point_map_numpy",
-           "point_map_to_normal_map_numpy", "depth_map_edge_numpy", "normal_map_edge_numpy",
+           "point_map_to_normal_map_numpy", "depth_map_to_normal_map_numpy", "depth_map_edge_numpy", "normal_map_edge_numpy",
            "masked_nearest_resize_numpy", "norm3d", "unproject_cv_numpy", "project_cv_numpy", "uv_to_pixel_numpy",
-           "rotation_matrix_from_vectors", "ray_intersection"]
+           "rotation_matrix_from_vectors", "ray_intersection", "disk_kernel", "disk_blur", "depth_of_field"]
 
 
 def uv_map_numpy(height: int, width: int, dtype=np.float32) -> np.ndarray:
@@ -127,6 +128,27 @@ def point_map_to_normal_map_numpy(points: np.ndarray, mask: Optional[np.ndarray]
     valid = count > 0
     normal = normal / np.maximum(np.linalg.norm(normal, axis=-1, keepdims=True), 1e-12)
     return np.where(valid[..., None], normal, 0.0).astype(np.float32), valid
+
+
+def depth_map_to_normal_map_numpy(
+    depth: np.ndarray,
+    intrinsics: np.ndarray,
+    mask: Optional[np.ndarray] = None,
+    edge_threshold: Optional[float] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Normals from depth (utils3d `depth_map_to_normal_map`): unproject, quad
+    cross-products; ``edge_threshold`` (degrees) invalidates normals nearly
+    perpendicular to the viewing ray (grazing surfaces / depth edges)."""
+    if mask is None:
+        mask = np.isfinite(depth)
+    points = depth_map_to_point_map_numpy(np.where(mask, depth, 1.0), intrinsics)
+    normal, valid = point_map_to_normal_map_numpy(points, mask)
+    if edge_threshold is not None:
+        ray = points / np.maximum(norm3d(points)[..., None], 1e-12)
+        cos_angle = -np.sum(normal * ray, axis=-1)  # normals face the camera
+        grazing = np.abs(cos_angle) < np.cos(np.deg2rad(edge_threshold))
+        valid = valid & ~grazing
+    return np.where(valid[..., None], normal, np.nan).astype(np.float32), valid
 
 
 def normal_map_edge_numpy(normals: np.ndarray, tol_deg: float = 15.0, kernel_size: int = 3, mask: Optional[np.ndarray] = None) -> np.ndarray:
@@ -272,3 +294,55 @@ def ray_intersection(p1: np.ndarray, d1: np.ndarray, p2: np.ndarray, d2: np.ndar
         t1 = (dp[..., 0] * d2[..., 1] - dp[..., 1] * d2[..., 0]) / cross
     pts = p1 + t1[..., None] * d1
     return pts, t1
+
+
+def disk_kernel(radius: int) -> np.ndarray:
+    """(2r+1, 2r+1) normalized disk kernel (reference geometry_numpy.py:164-181)."""
+    L = np.arange(-radius, radius + 1)
+    X, Y = np.meshgrid(L, L)
+    kernel = ((X ** 2 + Y ** 2) <= radius ** 2).astype(np.float32)
+    kernel /= np.sum(kernel)
+    return kernel
+
+
+def disk_blur(image: np.ndarray, radius: int) -> np.ndarray:
+    """FFT disk blur (reference geometry_numpy.py:184-208)."""
+    from scipy.signal import fftconvolve
+
+    if radius == 0:
+        return image
+    kernel = disk_kernel(radius)
+    if image.ndim == 2:
+        return fftconvolve(image, kernel, mode="same")
+    if image.ndim == 3:
+        return np.stack([fftconvolve(image[..., i], kernel, mode="same") for i in range(image.shape[2])], axis=-1)
+    raise ValueError("Image must be 2D or 3D.")
+
+
+def depth_of_field(img: np.ndarray, disp: np.ndarray, focus_disp: float, max_blur_radius: int = 10) -> np.ndarray:
+    """Depth-of-field augmentation (reference geometry_numpy.py:211-261)."""
+    import cv2
+
+    max_disp = np.max(disp)
+    disp = disp / max_disp
+    focus_disp = focus_disp / max_disp
+    dilated_disp = []
+    for radius in range(max_blur_radius + 1):
+        dilated_disp.append(
+            cv2.dilate(disp, cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (2 * radius + 1, 2 * radius + 1)), iterations=1)
+        )
+    blur_radii = np.clip(abs(disp - focus_disp) * max_blur_radius, 0, max_blur_radius).astype(np.int32)
+    for radius in range(max_blur_radius + 1):
+        dilated_blur_radii = np.clip(abs(dilated_disp[radius] - focus_disp) * max_blur_radius, 0, max_blur_radius).astype(np.int32)
+        m = (dilated_blur_radii >= radius) & (dilated_blur_radii >= blur_radii) & (dilated_disp[radius] > disp)
+        blur_radii[m] = dilated_blur_radii[m]
+    blur_radii = np.clip(blur_radii, 0, max_blur_radius)
+    blur_radii = cv2.blur(blur_radii, (5, 5))
+
+    unique_radii = np.unique(blur_radii)
+    precomputed = {r: disk_blur(img, r) for r in range(max_blur_radius + 1) if r in unique_radii}
+    output = np.zeros_like(img)
+    for r in unique_radii:
+        m = blur_radii == r
+        output[m] = precomputed[r][m]
+    return output

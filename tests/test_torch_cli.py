@@ -121,7 +121,8 @@ def test_cli_group_offers_the_ported_commands():
     from click.testing import CliRunner
 
     group = cli.command()
-    assert set(group.commands) == {"infer", "serve", "infer_panorama", "eval_baseline", "infer_baseline"}
+    assert set(group.commands) == {"infer", "serve", "infer_panorama", "eval_baseline", "infer_baseline", "train",
+                                   "vis_data"}
     result = CliRunner().invoke(group, ["--help"])
     assert result.exit_code == 0 and all(name in result.output for name in group.commands)
 

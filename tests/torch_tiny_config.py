@@ -3,8 +3,8 @@ level, so GPU hosts without JAX can use it): the full structure (encoder,
 neck, three heads, scale MLP) on the ``dinov2_vitt14`` arch, as in
 ``__graft_entry__.dryrun_multichip``; the weight bridge from the JAX
 package's parameter trees to the port's state dicts; a smooth distance
-field seen by the panorama's views; and a synthetic eval benchmark written
-with the port's codecs."""
+field seen by the panorama's views; and a synthetic eval benchmark and
+synthetic training datasets written with the port's codecs."""
 
 _HEAD = {
     "dim_in": [64, 32, 16, 16, 16], "dim_res_blocks": [64, 32, 16, 16, 16], "num_res_blocks": [0, 1, 1, 1, 0],
@@ -202,3 +202,65 @@ def write_benchmark(root, n_samples=3, hw=(60, 80), seed=0):
         names.append(d.name)
     (root / ".index.txt").write_text("\n".join(names))
     return names
+
+
+# the per-dataset keys of configs/train/v2.json that the synthetic training
+# datasets carry: label types A, B and C, metric (depth_unit 1 and 0.001) and
+# not, the relative fov range, the dof and shot_noise augmentations, the
+# only_known finite mask and the completed-depth file name
+TRAIN_DATASETS = [
+    {"name": "SynthA", "label_type": "A", "weight": 5.0, "depth_unit": 1, "fov_range_relative": [0.5, 1.0],
+     "image_augmentation": ["jittering", "jpeg_loss", "blurring", "shot_noise", "dof"],
+     "finite_depth_mask": "only_known"},
+    {"name": "SynthB", "label_type": "B", "weight": 8.6, "depth_unit": 0.001, "fov_range_relative": [0.5, 1.0],
+     "image_augmentation": ["jittering", "jpeg_loss", "blurring", "dof"], "depth": "depth_completed.png"},
+    {"name": "SynthC", "label_type": "C", "weight": 5.6, "fov_range_relative": [0.5, 1.0],
+     "image_augmentation": ["jittering", "jpeg_loss", "blurring", "dof"], "depth": "depth_completed.png"},
+]
+
+
+def write_train_dataset(root, n_instances=3, hw=(96, 128), seed=0):
+    """Synthetic training datasets under ``root`` in the layout the training
+    loader reads, written with the port's codecs: one folder per entry of
+    ``TRAIN_DATASETS``, each with ``n_instances`` instance folders
+    (``image.jpg``, a smooth image with noise; the depth PNG under the
+    entry's ``depth`` name, a tilted wavy surface in the entry's unit, with
+    an inf sky over the top rows of every other instance and a NaN hole;
+    ``meta.json`` with normalised intrinsics of a 50-70 degree horizontal
+    fov) and ``.index.txt``. Returns ``TRAIN_DATASETS`` with each entry's
+    ``path`` set, for a config's ``data.datasets``."""
+    import copy
+    from pathlib import Path
+
+    import numpy as np
+
+    from moge_tpu_torch.utils.io import write_depth, write_image, write_json
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    datasets = copy.deepcopy(TRAIN_DATASETS)
+    for ds in datasets:
+        folder = root / ds["name"]
+        names = []
+        for i in range(n_instances):
+            d = folder / f"instance_{i}"
+            d.mkdir(parents=True)
+            phase = rng.uniform(0, 6, 3)
+            base = 127 + 80 * np.sin(4 * xx[..., None] + 3 * yy[..., None] + phase)
+            image = np.clip(base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+            write_image(d / "image.jpg", image)
+            depth = 2.0 + 1.5 * yy + 0.3 * np.sin(9 * xx + phase[0]) + 0.05 * rng.standard_normal((h, w))
+            depth = (depth / ds.get("depth_unit", 1)).astype(np.float32)
+            if i % 2 == 0:
+                depth[: h // 8] = np.inf
+            r, c = rng.integers(h // 4, h // 2), rng.integers(w // 4, w // 2)
+            depth[r:r + h // 10, c:c + w // 10] = np.nan
+            write_depth(d / ds.get("depth", "depth.png"), depth)
+            fx = 0.5 / np.tan(np.deg2rad(rng.uniform(50, 70)) / 2)
+            write_json(d / "meta.json", {"intrinsics": [[fx, 0.0, 0.5], [0.0, fx * w / h, 0.5], [0.0, 0.0, 1.0]]})
+            names.append(d.name)
+        (folder / ".index.txt").write_text("\n".join(names))
+        ds["path"] = str(folder)
+    return datasets
