@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, serving, panorama, eval, training (step and command) and probes on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, serving, panorama, eval, training (step, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -84,7 +84,7 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 11. the training command: ``cli train`` in-process over a copy of
     ``configs/train/v2.json`` whose datasets are synthetic (labels A, B, C,
     metric and not, inf sky, NaN holes, the v2 per-dataset options), the
-    threaded augmenting loader, random sizes, ViT-L bf16 batch 2: 20 steps
+    threaded augmenting loader, random sizes, ViT-L bf16 batch 2: 12 steps
     and a checkpoint, the checkpoint loaded into a fresh state bit for bit,
     one step on a fixed batch repeated from one state (the card's spread)
     against the same step from the loaded state, ``infer`` from the
@@ -92,6 +92,19 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
     of 2 micro-batches; launch counters per micro-batch; ms per step by
     token count, seconds waiting for data, peak memory, checkpoint and
     resume seconds;
+11b. MoGe-1 training: ``cli train`` on ``configs/train/v1.json``
+    (``moge-vitl``, its loss tables) over the synthetic datasets under v1's
+    label types, batch 2, three steps and a checkpoint whose ``model.pt``
+    and EMA load into ``models.v1.MoGeModel`` and pass the MoGe-1 gates;
+11c. the parallel paths (v2.json's model over the synthetic datasets,
+    its losses that draw nothing, a global batch of 2, two steps): two
+    single-process runs (the card's spread), one NCCL rank
+    (``--multihost --num_processes 1``; one gradient all-reduce a step
+    through NCCL on the card), the same rank with the sharded (FSDP) code
+    path on, and two DP ranks on this one card over gloo with CUDA tensors,
+    each in its own process: the DP ranks' whole states equal, every run's
+    parameters and EMA within 2x the spread of the single-process runs,
+    peak memory and the own share of the training state per rank;
 12. the giant: ``moge-2-vitl-normal`` on ``dinov2_vitg14`` (SwiGLU, 24
     heads), random weights, bf16, 518^2 at 1369 tokens, launch counters,
     warm latency and peak memory;
@@ -111,7 +124,9 @@ summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads``, ``moge1_infer`` and ``giant``, one
 batch for ``serve``, one 12-view panorama for ``panorama``, one sample for
-``eval``, one step for ``train``, one micro-batch for ``train_cli``, the
+``eval``, one step for ``train``, one micro-batch for ``train_cli``,
+``train_v1``, ``train_single``, ``train_nccl`` and ``train_fsdp``, one
+rank's micro-batch for ``train_dp``, the
 three tools' measurements for ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
 reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
 medians by CUDA events around each call for every kernel, and K1, K2,
@@ -124,6 +139,11 @@ K3, K3-grouped)
 gives each path's launches per run by kernel variant;
 ``infer_launches`` is the count per ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
 beside it, it exits nonzero and prints no result.
+
+``python3 chip_smoke.py --cards``, on a host with several cards, runs
+phases 1-2 and then only the multi-card check (``phase_cards``: the
+training command over every card by NCCL at ``--fsdp`` 1, 2 and 4 against
+one card) and prints its numbers as a JSON line.
 """
 
 from __future__ import annotations
@@ -220,7 +240,7 @@ EVAL_RTOL = 1e-5  # compute_metrics, card vs CPU on the same predictions
 # takes one more step, run B two steps of two micro-batches each
 TRAIN_CLI_BATCH = 2
 TRAIN_CLI_LOW_RES = 2
-TRAIN_CLI_STEPS = 20
+TRAIN_CLI_STEPS = 12
 TRAIN_CLI_SRC_HW = (768, 1024)
 TRAIN_CLI_INSTANCES = 4
 RESUME_TOKENS = 1800  # the fixed batch's step, uninterrupted vs resumed
@@ -228,6 +248,14 @@ RESUME_REPEATS = 2    # steps repeated from one state to measure the card's spre
 RESUME_MARGIN = 2.0   # the resumed step may differ by this multiple of the measured spread
 RESUME_RTOL = 1e-6    # ... or by this much relative when the spread is 0
 # the giant: moge-2-vitl-normal on dinov2_vitg14 (its four layers, its cls width into the scale head)
+TRAIN_V1_CONFIG = ROOT / "configs" / "train" / "v1.json"
+TRAIN_V1_STEPS = 3
+TRAIN_V1_LABELS = ("synthetic", "sfm", "lidar")  # v1.json's label types, given to the synthetic datasets
+# the parallel runs: v2.json with its losses that draw nothing, a global
+# batch of 2 (one instance per rank) for PARALLEL_STEPS steps
+PARALLEL_STEPS = 2
+PARALLEL_LOSSES = ("global", "normal", "mask")
+PARALLEL_TIMEOUT = 900  # seconds for one two-process run
 GIANT_TOKENS = 1369
 GIANT_HW = 518
 VIS_MAX_DEPTH = 1.5  # vis_data -m: keep points nearer than 1.5 x the nearest depth
@@ -494,6 +522,51 @@ def k3_shapes(grid_h: int, grid_w: int) -> list:
            [(8 * grid_h, 8 * grid_w, 64, 4 * o, False, False, True, n) for o, n in ((32, 1), (3, 2), (1, 1))]
 
 
+def v1_path_grids() -> dict:
+    """path -> (batch, (patch_h, patch_w), (resized_h, resized_w)) of the
+    moge-vitl (MoGe-1) forward of each MoGe-1 path this script counts:
+    moge1_infer's 518x518 request at 1369 tokens, and the v1 training
+    command's two extreme images at its low-resolution 1200 tokens, 512x1024
+    and 1024x512 (aspect 2:1 and 1:2, the ends of v1.json's
+    aspect_ratio_range), at its batch. ``MoGeV1.forward``'s arithmetic: the
+    image resized to the token budget, its patch grid, and the size the
+    head's output blocks run at."""
+    def grid(num_tokens, img_h, img_w):
+        factor = ((num_tokens * 14 ** 2) / (img_h * img_w)) ** 0.5
+        resized_h, resized_w = int(img_h * factor), int(img_w * factor)
+        return (resized_h // 14, resized_w // 14), (resized_h, resized_w)
+
+    lo = json.loads(TRAIN_V1_CONFIG.read_text())["model"]["num_tokens_range"][0]
+    return {"moge1_infer": (1, *grid(1369, 518, 518)), "train_v1 2:1": (TRAIN_CLI_BATCH, *grid(lo, 512, 1024)),
+            "train_v1 1:2": (TRAIN_CLI_BATCH, *grid(lo, 1024, 512))}
+
+
+def k3_shapes_v1(config: dict, patch: tuple, resized: tuple) -> list:
+    """K3's shapes in one MoGe-1 forward of ``config`` on a patch grid, its
+    output blocks at ``resized``, in ``k3_shapes``' form. Per upsample stage
+    (2, 4, 8 ... times the grid) the 3x3 conv after the transposed conv,
+    then per res block its conv into the hidden width with the input ReLU
+    and its conv back with ReLU and residual; per output block (points,
+    mask: 2) the conv_in over the features and the UV channels, the res
+    blocks' convs, and a 3x3 conv_out (3 and 1 channels) when it has one."""
+    hidden = config.get("dim_times_res_block_hidden", 1)
+    n_res = config.get("num_res_blocks", 1)
+    shapes = []
+    for i, d in enumerate(config.get("dim_upsample", [256, 128, 128]), 1):
+        h, w = patch[0] << i, patch[1] << i
+        shapes += [(h, w, d, d, False, False, False, 1), (h, w, d, hidden * d, True, False, False, n_res),
+                   (h, w, hidden * d, d, True, True, False, n_res)]
+    (h, w), c = resized, config.get("last_conv_channels", 32)
+    n_last = config.get("last_res_blocks", 0)
+    shapes.append((h, w, config.get("dim_upsample", [256, 128, 128])[-1] + 2, c, False, False, False, 2))
+    if n_last:
+        shapes += [(h, w, c, hidden * c, True, False, False, 2 * n_last), (h, w, hidden * c, c, True, True, False,
+                                                                           2 * n_last)]
+    if config.get("last_conv_size", 1) == 3:
+        shapes += [(h, w, c, o, False, False, False, 1) for o in (3, 1)]
+    return [s for s in shapes if s[-1]]
+
+
 K3_RAGGED = [(37, 53, 64, 64, True, True), (37, 53, 24, 20, True, False)]
 
 
@@ -537,10 +610,15 @@ def conv_cases(gen):
     forward (batch 1, 1369 tokens), then at ragged ones, then at every shape
     of the panorama's (12 views, 3600 tokens), eval's (480x640, 3600 tokens)
     and the training command's two extreme grids (batch 2, 1200 tokens,
-    aspect 2:1 and 1:2) forwards (``path_grids``); times (``conv_times``) of the kernel,
-    the plain version and F.conv2d; then per path K3 ms per forward by
-    device time, kernel against library: each shape's launches per forward
-    x its time, and their sums."""
+    aspect 2:1 and 1:2) forwards (``path_grids``), then at every shape of
+    the MoGe-1 forwards of moge1_infer and the v1 training command
+    (``v1_path_grids``, ``k3_shapes_v1``: moge-vitl's head, res blocks twice
+    as wide as their stage); times (``conv_times``) of the kernel, the plain
+    version and F.conv2d (the MoGe-1 shapes: kernel and F.conv2d by CUDA
+    events alone, 5 calls); then per path K3 ms per forward by device time
+    (MoGe-1: by events), kernel against library: each shape's launches per
+    forward x its time, and their sums, which must be the config's launches
+    per forward."""
     import torch
 
     from moge_tpu_torch.models.presets import get_preset
@@ -548,14 +626,18 @@ def conv_cases(gen):
 
     dev = torch.device(DEVICE)
     bf16 = torch.bfloat16
-    grids = path_grids()
-    want = expected_launches(get_preset("moge-2-vitl-normal")["config"])["conv3x3"]
-    runs = [("infer", grids["infer"][0], k3_shapes(*grids["infer"][1])),
-            (None, 1, [(*r, False, 0) for r in K3_RAGGED])] + \
-           [(path, grids[path][0], k3_shapes(*grids[path][1]))
-            for path in ("panorama", "eval", "train_cli 2:1", "train_cli 1:2")]
+    grids, v1_grids = path_grids(), v1_path_grids()
+    want = {"moge-2-vitl-normal": expected_launches(get_preset("moge-2-vitl-normal")["config"])["conv3x3"]}
+    v1_config = get_preset("moge-vitl")["config"]
+    want["moge-vitl"] = expected_v1_launches(v1_config)["conv3x3"]
+    runs = [("infer", grids["infer"][0], k3_shapes(*grids["infer"][1]), "moge-2-vitl-normal"),
+            (None, 1, [(*r, False, 0) for r in K3_RAGGED], None)] + \
+           [(path, grids[path][0], k3_shapes(*grids[path][1]), "moge-2-vitl-normal")
+            for path in ("panorama", "eval", "train_cli 2:1", "train_cli 1:2")] + \
+           [(path, batch, k3_shapes_v1(v1_config, patch, resized), "moge-vitl")
+            for path, (batch, patch, resized) in v1_grids.items()]
     cases = []
-    for path, batch, shapes in runs:
+    for path, batch, shapes, model in runs:
         per_forward = {}
         for h, w, c, o, relu, use_res, up2, n in shapes:
             x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(bf16)
@@ -572,13 +654,19 @@ def conv_cases(gen):
             err = (got - want_out).abs().max().item()
             rel = err / want_out.abs().max().item()
             del got, want_out
-            ms, plain_ms, lib_ms, dev_ms = conv_times(x, kern, bias, res, relu)
+            if model == "moge-vitl":  # the check, and times by CUDA events alone (no profiler traces)
+                ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu), 5)
+                lib_ms = cuda_ms(library_conv(x, kern, bias), 5)
+                plain_ms, dev_ms = None, {"device_ms": ms, "library_device_ms": lib_ms}
+                times = f"ms by events: kernel {ms:.4f}, F.conv2d {lib_ms:.4f}"
+            else:
+                ms, plain_ms, lib_ms, dev_ms = conv_times(x, kern, bias, res, relu)
+                times = conv_times_text(ms, plain_ms, lib_ms, dev_ms)
             bnd = conv_bound(x, kern, res)
             label = f"{'up2 ' if up2 else ''}B={batch} {h}x{w} {c}->{o} relu={relu} residual={use_res}"
             log(f"[K3] {label} ({variant[0] if len(variant) == 1 else variant}, "
                 f"{conv._tile_config(1, batch, h, w, c, o, _build.sm_count(dev))}): max_abs_err {err:.3e} rel "
-                f"{rel:.3e} (tol {K3_REL}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms)}; "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+                f"{rel:.3e} (tol {K3_REL}), {times}; bound {bnd[0]:.4f} ms ({bnd[1]})")
             if not rel <= K3_REL:
                 raise AssertionError(f"K3 conv disagrees at {label}: rel {rel} > {K3_REL}")
             if variant not in [[v] for v in conv.PIPELINED]:
@@ -593,14 +681,17 @@ def conv_cases(gen):
         torch.cuda.empty_cache()
         if path is None:
             continue
+        measure = "CUDA events" if model == "moge-vitl" else "device time"
         for shape, (n, k_ms, l_ms) in per_forward.items():
-            log(f"[K3 per forward] {path}: {shape}: {n} launches, device time: kernel {k_ms:.4f} ms, "
+            log(f"[K3 per forward] {path}: {shape}: {n} launches, {measure}: kernel {k_ms:.4f} ms, "
                 f"F.conv2d {l_ms:.4f} ms")
         total = [sum(r[i] for r in per_forward.values()) for i in range(3)]
-        if total[0] != want:
-            raise AssertionError(f"k3_shapes lists {total[0]} launches per forward, the config implies {want}")
-        log(f"[K3 per forward] {path}: moge-2-vitl-normal, batch {batch}, token grid {grids[path][1]}: "
-            f"{total[0]} launches, kernel {total[1]:.4f} ms vs F.conv2d {total[2]:.4f} ms (device time)")
+        if total[0] != want[model]:
+            raise AssertionError(f"{path}: the K3 shapes list {total[0]} launches per forward, {model} implies "
+                                 f"{want[model]}")
+        grid = grids[path][1] if path in grids else v1_grids[path][1]
+        log(f"[K3 per forward] {path}: {model}, batch {batch}, token grid {grid}: "
+            f"{total[0]} launches, kernel {total[1]:.4f} ms vs F.conv2d {total[2]:.4f} ms ({measure})")
     return cases
 
 
@@ -985,16 +1076,21 @@ def expected_v1_launches(config) -> dict:
     return counts
 
 
-def expected_train_launches(config, loss_config) -> dict:
-    """Kernel launches per train step implied by a MoGe-2 config and a loss
-    config: one forward (K1, K2, K3), the flash backward per block (K2b-dq,
-    K2b-dkv; K1 and K3 backward in plain PyTorch), and one K4 per truncated
-    alignment solve: the global loss's, and the local losses' (one batched
-    solve when they share trunc and align_resolution, else one each)."""
+def expected_train_launches(config, loss_config, version: str = "v2") -> dict:
+    """Kernel launches per train step implied by a MoGe-2 (or, ``version``
+    'v1', MoGe-1) config and a loss config: one forward (K1, K2, K3), the
+    flash backward per block (K2b-dq, K2b-dkv; K1 and K3 backward in plain
+    PyTorch), and one K4 per truncated alignment solve: the global loss's,
+    and the local losses' (one batched solve when they share trunc and
+    align_resolution, else one each)."""
     from moge_tpu_torch.models.dinov2 import VIT_ARCHS
 
-    counts = expected_launches(config)
-    depth = VIT_ARCHS[config["encoder"]["backbone"]].depth
+    if version == "v1":
+        counts = expected_v1_launches(config)
+        depth = VIT_ARCHS[config["encoder"]].depth
+    else:
+        counts = expected_launches(config)
+        depth = VIT_ARCHS[config["encoder"]["backbone"]].depth
     entries = {name: spec for table in loss_config.values() for name, spec in table.items()}
     local = [spec.get("params", {}) for spec in entries.values() if spec["function"] == "affine_invariant_local_loss"]
     shared = len(local) >= 2 and len({(p.get("trunc", 1.0), p.get("align_resolution", 32)) for p in local}) == 1
@@ -1282,6 +1378,72 @@ def phase_serve(card: str, model):
     return (per_forward, batches), stats
 
 
+def check_moge1_answer(model, image, out, label: str, kwargs: dict) -> float:
+    """The MoGe-1 gates of one ``infer`` of ``model`` (a ``models.v1.MoGeModel``
+    whose head ``make_points_perspective_v1`` set, focal MOGE1_FOCAL) on
+    ``image`` (h, w, 3) with ``kwargs``: output shapes and types, the whole
+    image in the mask, finite intrinsics and depth, not the solve's
+    degenerate fallback, the injected focal and depth (without fov_x) or the
+    given fov_x, and the card's solve against a CPU solve of the card's raw
+    points. Returns fx."""
+    import math
+
+    import torch
+
+    from moge_tpu_torch.ops.solvers import recover_focal_shift
+    from torch_tiny_config import perspective_v1_answer
+
+    h, w = image.shape[:2]
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w)}
+    if shapes != want or out["mask"].dtype != torch.bool:
+        raise AssertionError(f"{label}: output shapes {shapes} (mask {out['mask'].dtype}), expected {want}")
+    mask = out["mask"]
+    if not mask.all():
+        raise AssertionError(f"{label}: mask holds {mask.float().mean().item():.4f} of the pixels, "
+                             "expected all of them (the mask head outputs 1)")
+    if not torch.isfinite(out["intrinsics"]).all() or not torch.isfinite(out["depth"]).all():
+        raise AssertionError(f"{label}: non-finite intrinsics or depth")
+    fx = out["intrinsics"][0, 0].item()
+    aspect = w / h
+    fallback_fx = 0.5 * (1 + aspect ** 2) ** 0.5 / aspect  # the solve's degenerate answer, focal 1
+    if abs(fx - fallback_fx) <= 1e-6 * fallback_fx:
+        raise AssertionError(f"{label}: fx {fx} is the solve's degenerate fallback")
+
+    # the card's solve against the same solve on the CPU from the card's raw points
+    with torch.inference_mode():
+        raw = model.module(image[None], model.module.num_tokens_range[1], torch.bfloat16)
+    raw_points = raw["points"][0].cpu()
+    raw_mask = (raw["mask"][0] > model.module.mask_threshold).cpu()
+    if "fov_x" in kwargs:
+        want_fx = 0.5 / math.tan(math.radians(kwargs["fov_x"]) / 2)
+        if abs(fx - want_fx) > 1e-5 * want_fx:
+            raise AssertionError(f"{label}: fx {fx} does not follow fov_x (want {want_fx})")
+        focal = torch.tensor(want_fx * 2 * aspect / (1 + aspect ** 2) ** 0.5)
+        _, cpu_shift = recover_focal_shift(raw_points[None], raw_mask[None], focal=focal[None])
+        cpu_fx = want_fx
+    else:
+        cpu_focal, cpu_shift = recover_focal_shift(raw_points[None], raw_mask[None])
+        cpu_fx = cpu_focal.item() / 2 * (1 + aspect ** 2) ** 0.5 / aspect
+        true_fx, _, true_depth = perspective_v1_answer(h, w, focal=MOGE1_FOCAL)
+        focal_err = abs(fx - true_fx) / true_fx
+        inner = (slice(2, -2), slice(2, -2))  # the resize to the image clamps at its border
+        depth_err = ((out["depth"].cpu()[inner] - true_depth[inner]).norm() / true_depth[inner].norm()).item()
+        log(f"[moge1] {label}: injected focal {MOGE1_FOCAL}: fx {fx:.5f} vs {true_fx:.5f} (rel "
+            f"{focal_err:.3e}, tol {MOGE1_FOCAL_RTOL}), depth rel L2 {depth_err:.3e} (tol {MOGE1_DEPTH_RTOL})")
+        if not (focal_err <= MOGE1_FOCAL_RTOL and depth_err <= MOGE1_DEPTH_RTOL):
+            raise AssertionError(f"{label}: the solve missed the injected perspective")
+    cpu_depth = raw_points[..., 2] + cpu_shift[0]
+    solve_fx = abs(fx - cpu_fx) / cpu_fx
+    solve_depth = ((out["depth"].cpu() - cpu_depth).norm() / cpu_depth.norm()).item()
+    log(f"[moge1] {label}: card vs CPU solve of the same raw points: fx rel {solve_fx:.3e}, "
+        f"depth rel L2 {solve_depth:.3e} (tol {MOGE1_SOLVE_RTOL}), shift card/CPU "
+        f"{(out['depth'].cpu() - raw_points[..., 2]).mean().item():.3e}/{cpu_shift.item():.3e}")
+    if not (solve_fx <= MOGE1_SOLVE_RTOL and solve_depth <= MOGE1_SOLVE_RTOL):
+        raise AssertionError(f"{label}: the card's solve disagrees with the CPU's")
+    return fx
+
+
 def phase_moge1(card: str):
     """moge-vitl (MoGe-1 ViT-L) at full width, random weights, bf16: three
     ``infer`` requests (one with fov_x, one non-square), launch counters per
@@ -1292,16 +1454,13 @@ def phase_moge1(card: str):
     solve's degenerate fallback (focal 1), match the injected focal and depth
     (MOGE1_FOCAL_RTOL, MOGE1_DEPTH_RTOL) and a CPU solve of the card's own raw
     points (MOGE1_SOLVE_RTOL). Then a ViT-S MoGe-1 with the same head, bf16 on
-    the card against fp32 on the CPU."""
-    import math
-
+    the card against fp32 on the CPU (``check_moge1_answer``)."""
     import numpy as np
     import torch
 
     from moge_tpu_torch.models.presets import get_preset
     from moge_tpu_torch.models.v1 import MoGeModel
-    from moge_tpu_torch.ops.solvers import recover_focal_shift
-    from torch_tiny_config import make_points_perspective_v1, perspective_v1_answer
+    from torch_tiny_config import make_points_perspective_v1
 
     config = get_preset("moge-vitl")["config"]
     expect = expected_v1_launches(config)
@@ -1320,53 +1479,8 @@ def phase_moge1(card: str):
         if counts != expect:
             raise AssertionError(f"moge-vitl {label}: kernel launches {counts}, expected {expect} per forward")
         check_variants("moge1_infer", f"moge-vitl {label}", counts)
-        shapes = {k: tuple(v.shape) for k, v in out.items()}
-        want = {"points": (h, w, 3), "depth": (h, w), "intrinsics": (3, 3), "mask": (h, w)}
-        if shapes != want or out["mask"].dtype != torch.bool:
-            raise AssertionError(f"moge-vitl {label}: output shapes {shapes} (mask {out['mask'].dtype}), expected {want}")
+        fx = check_moge1_answer(model, image, out, f"moge-vitl {label}", kwargs)
         mask = out["mask"]
-        if not mask.all():
-            raise AssertionError(f"moge-vitl {label}: mask holds {mask.float().mean().item():.4f} of the pixels, "
-                                 "expected all of them (the mask head outputs 1)")
-        if not torch.isfinite(out["intrinsics"]).all() or not torch.isfinite(out["depth"]).all():
-            raise AssertionError(f"moge-vitl {label}: non-finite intrinsics or depth")
-        fx = out["intrinsics"][0, 0].item()
-        aspect = w / h
-        fallback_fx = 0.5 * (1 + aspect ** 2) ** 0.5 / aspect  # the solve's degenerate answer, focal 1
-        if abs(fx - fallback_fx) <= 1e-6 * fallback_fx:
-            raise AssertionError(f"moge-vitl {label}: fx {fx} is the solve's degenerate fallback")
-
-        # the card's solve against the same solve on the CPU from the card's raw points
-        with torch.inference_mode():
-            raw = model.module(image[None], model.module.num_tokens_range[1], torch.bfloat16)
-        raw_points = raw["points"][0].cpu()
-        raw_mask = (raw["mask"][0] > model.module.mask_threshold).cpu()
-        if "fov_x" in kwargs:
-            want_fx = 0.5 / math.tan(math.radians(kwargs["fov_x"]) / 2)
-            if abs(fx - want_fx) > 1e-5 * want_fx:
-                raise AssertionError(f"moge-vitl {label}: fx {fx} does not follow fov_x (want {want_fx})")
-            focal = torch.tensor(want_fx * 2 * aspect / (1 + aspect ** 2) ** 0.5)
-            _, cpu_shift = recover_focal_shift(raw_points[None], raw_mask[None], focal=focal[None])
-            cpu_fx = want_fx
-        else:
-            cpu_focal, cpu_shift = recover_focal_shift(raw_points[None], raw_mask[None])
-            cpu_fx = cpu_focal.item() / 2 * (1 + aspect ** 2) ** 0.5 / aspect
-            true_fx, _, true_depth = perspective_v1_answer(h, w, focal=MOGE1_FOCAL)
-            focal_err = abs(fx - true_fx) / true_fx
-            inner = (slice(2, -2), slice(2, -2))  # the resize to the image clamps at its border
-            depth_err = ((out["depth"].cpu()[inner] - true_depth[inner]).norm() / true_depth[inner].norm()).item()
-            log(f"[moge1] moge-vitl {label}: injected focal {MOGE1_FOCAL}: fx {fx:.5f} vs {true_fx:.5f} (rel "
-                f"{focal_err:.3e}, tol {MOGE1_FOCAL_RTOL}), depth rel L2 {depth_err:.3e} (tol {MOGE1_DEPTH_RTOL})")
-            if not (focal_err <= MOGE1_FOCAL_RTOL and depth_err <= MOGE1_DEPTH_RTOL):
-                raise AssertionError(f"moge-vitl {label}: the solve missed the injected perspective")
-        cpu_depth = raw_points[..., 2] + cpu_shift[0]
-        solve_fx = abs(fx - cpu_fx) / cpu_fx
-        solve_depth = ((out["depth"].cpu() - cpu_depth).norm() / cpu_depth.norm()).item()
-        log(f"[moge1] moge-vitl {label}: card vs CPU solve of the same raw points: fx rel {solve_fx:.3e}, "
-            f"depth rel L2 {solve_depth:.3e} (tol {MOGE1_SOLVE_RTOL}), shift card/CPU "
-            f"{(out['depth'].cpu() - raw_points[..., 2]).mean().item():.3e}/{cpu_shift.item():.3e}")
-        if not (solve_fx <= MOGE1_SOLVE_RTOL and solve_depth <= MOGE1_SOLVE_RTOL):
-            raise AssertionError(f"moge-vitl {label}: the card's solve disagrees with the CPU's")
         latencies[label] = wall_ms(lambda: model.infer(image, **kwargs), 3)
         log(f"[moge1] moge-vitl {label}: mask {mask.float().mean().item():.3f} of pixels, "
             f"fx {fx:.4f}, launches {counts}, warm median {latencies[label]:.2f} ms ({card})")
@@ -1935,12 +2049,13 @@ def train_cli_config(tmp: Path) -> Path:
     return path
 
 
-def run_train_cli(config_path: Path, workspace: Path, expect: dict, accumulation: int, label: str, *extra):
+def run_train_cli(config_path: Path, workspace: Path, expect: dict, accumulation: int, label: str, *extra,
+                  path: str = "train_cli"):
     """``cli train`` in-process on the card with the counters set to 0 just
     before and read just after; the launches must be the expected count per
-    micro-batch times the micro-batches, every one on its Hopper variant.
-    Returns (the command's result, this run's steps.jsonl lines, wall s,
-    peak GiB, micro-batches)."""
+    micro-batch times the micro-batches, every one on its Hopper variant
+    (recorded under ``path``). Returns (the command's result, this run's
+    steps.jsonl lines, wall s, peak GiB, micro-batches)."""
     import math
 
     import torch
@@ -1966,7 +2081,7 @@ def run_train_cli(config_path: Path, workspace: Path, expect: dict, accumulation
     want = {k: v * micro for k, v in expect.items()}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} over {micro} micro-batches, expected {want}")
-    check_variants("train_cli", label, counts, runs=micro)
+    check_variants(path, label, counts, runs=micro)
     if [m["step"] for m in metrics] != [x["step"] for x in lines] or \
             [x["step"] for x in lines] != [x["step"] for x in result["steps"]]:
         raise AssertionError(f"{label}: steps.jsonl {lines}, metrics.jsonl {metrics}")
@@ -1974,7 +2089,7 @@ def run_train_cli(config_path: Path, workspace: Path, expect: dict, accumulation
         if not ({"num_tokens", "t", "data_wait"} <= set(x) and math.isfinite(x["total"]) and m["grads_ok"] == 1.0
                 and len(x["sizes"]) == accumulation):
             raise AssertionError(f"{label}: step {x['step']}: {x}, grads_ok {m['grads_ok']}")
-    log(f"[train_cli] {label}: {len(lines)} steps of {accumulation} micro-batch(es) in {wall_s:.1f} s, peak "
+    log(f"[{path}] {label}: {len(lines)} steps of {accumulation} micro-batch(es) in {wall_s:.1f} s, peak "
         f"{peak_gib:.2f} GiB; per step (tokens, sizes, label types, s, s waiting for data, loss): "
         + "; ".join(f"{x['num_tokens']} {x['sizes']} {x['label_types']} {x['t']:.3f} {x['data_wait']:.3f} "
                     f"{x['total']:.4f}" for x in lines))
@@ -2193,6 +2308,479 @@ def phase_train_cli(card: str):
     return (expect, micro_a + micro_r + micro_b), stats
 
 
+def phase_train_v1(card: str):
+    """MoGe-1 training through ``cli train`` on the card: v1.json (moge-vitl
+    from random weights, bf16 compute, its loss tables) over the synthetic
+    datasets under v1's label types, batch 2, TRAIN_V1_STEPS steps and a
+    checkpoint at the last; launch counters over the command, per
+    micro-batch. The checkpoint's model.pt (and the EMA's) loads into
+    ``models.v1.MoGeModel``, whose ``infer``, on a point map of known
+    perspective, passes the MoGe-1 gates (``check_moge1_answer``)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.v1 import MoGeModel, MoGeV1
+    from torch_tiny_config import make_points_perspective_v1, write_train_dataset
+
+    root = ROOT / "workspace"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_v1_", dir=root))
+    try:
+        cfg = json.loads(TRAIN_V1_CONFIG.read_text())
+        datasets = write_train_dataset(tmp / "data", n_instances=TRAIN_CLI_INSTANCES, hw=TRAIN_CLI_SRC_HW, seed=SEED)
+        for ds, label in zip(datasets, TRAIN_V1_LABELS):
+            ds["label_type"] = label
+        cfg["data"]["datasets"] = datasets
+        config_path = tmp / "train_v1.json"
+        config_path.write_text(json.dumps(cfg))
+        expect = expected_train_launches(cfg["model"], cfg["loss"], version="v1")
+        res, lines, wall_s, peak_gib, micro = run_train_cli(
+            config_path, tmp / "ws", expect, 1, "MoGe-1 (v1.json)", "--num_iterations", str(TRAIN_V1_STEPS),
+            path="train_v1")
+        if not isinstance(res["state"].module, MoGeV1):
+            raise AssertionError(f"train on v1.json built {type(res['state'].module).__name__}, not MoGeV1")
+        del res
+        torch.cuda.empty_cache()
+        ckpt = tmp / "ws" / "checkpoints" / str(TRAIN_V1_STEPS - 1)
+        image = torch.from_numpy(np.random.default_rng(SEED + 9).uniform(0, 1, (518, 518, 3)).astype(np.float32))
+        fxs = {}
+        for name in (ckpt.name, ckpt.name + "_ema"):
+            model = MoGeModel.from_pretrained(ckpt.with_name(name) / "model.pt", device=DEVICE, dtype=torch.bfloat16)
+            make_points_perspective_v1(model.module, focal=MOGE1_FOCAL)
+            out = model.infer(image.to(DEVICE))
+            fxs[name] = check_moge1_answer(model, image.to(DEVICE), out, f"train_v1 checkpoint {name} 518x518", {})
+            del model, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stats = {"step_s": [x["t"] for x in lines], "num_tokens": [x["num_tokens"] for x in lines],
+             "sizes": [x["sizes"] for x in lines], "label_types": [x["label_types"] for x in lines],
+             "total": [x["total"] for x in lines], "wall_s": wall_s, "peak_gib": peak_gib, "checkpoint_fx": fxs}
+    log(f"[train_v1] moge-vitl on v1.json: steps (tokens, sizes, label types, s, loss) "
+        + "; ".join(f"{x['num_tokens']} {x['sizes']} {x['label_types']} {x['t']:.3f} {x['total']:.4f}" for x in lines)
+        + f"; peak {peak_gib:.2f} GiB; the checkpoint's infer fx {fxs} ({card})")
+    return (expect, micro), stats
+
+
+def parallel_config(tmp: Path) -> Path:
+    """TRAIN_CONFIG (v2.json: moge-2-vitl-normal) over the synthetic
+    datasets, with each label type's losses cut to PARALLEL_LOSSES (the
+    global, edge and mask losses: no random draw) and TRAIN_CLI_LOW_RES
+    low-resolution steps. Returns the written config's path."""
+    from torch_tiny_config import write_train_dataset
+
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    cfg["data"]["datasets"] = write_train_dataset(tmp / "data", n_instances=TRAIN_CLI_INSTANCES,
+                                                  hw=TRAIN_CLI_SRC_HW, seed=SEED)
+    cfg["loss"] = {lt: {n: spec for n, spec in table.items() if n in PARALLEL_LOSSES}
+                   for lt, table in cfg["loss"].items()}
+    cfg["low_resolution_training_steps"] = TRAIN_CLI_LOW_RES
+    path = tmp / "parallel.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _digest(t) -> str:
+    """A digest of a CPU tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    return hashlib.blake2b(t.detach().contiguous().reshape(-1).view(torch.uint8).numpy()).hexdigest()
+
+
+def train_rank_worker() -> None:
+    """One rank of a multi-process ``train`` run (run as ``python3 -c
+    "import chip_smoke; chip_smoke.train_rank_worker()" <out> <rank> <world>
+    <rendezvous> <path> <device type> <backend> <train args...>``): a
+    process group of <backend> at the file rendezvous (gloo with CUDA
+    tensors for ranks sharing one card, NCCL for one card per rank), on
+    card <rank> modulo the host's cards, ``cli train --multihost`` in
+    process (``torch_tiny_config.run_train_rank``), the launch counters set
+    to 0 just before and read just after, every launch's variant checked.
+    Writes to <out> (JSON): the counts, variants, peak memory, the rank's
+    own share of the training state in GiB, each step's record, and a
+    digest of every tensor of the whole (gathered) state."""
+    import torch
+
+    out, rank, world, rendezvous, path, device, backend, *train_args = sys.argv[1:]
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    from moge_tpu_torch.parallel.mesh import local
+    from torch_tiny_config import run_train_rank
+
+    if device == "cuda":
+        torch.cuda.set_device(int(rank) % torch.cuda.device_count())
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result, whole = run_train_rank(train_args, int(rank), int(world), rendezvous, device=device, backend=backend)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    micro = len(result["steps"])
+    check_variants(path, f"{path} rank {rank}", counts, runs=micro)
+    state = result["state"]
+    own = [local(p) for p in state.module.parameters()] + [local(e) for e in state.ema_params.values()] + \
+        [local(v) for per in state.optimizer.adamw.state.values() for v in per.values() if v.dim() > 0]
+    record = {"counts": counts, "micro": micro, "variants": VARIANTS_BY_PATH[path], "wall_s": wall_s,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else 0.0,
+              "state_gib": sum(t.numel() * t.element_size() for t in own) / 2 ** 30, "steps": result["steps"],
+              "digests": {k: _digest(v) for k, v in whole["tensors"].items()},
+              "scalars": {k: v for k, v in whole["scalars"].items() if k != "gen"}}
+    Path(out).write_text(json.dumps(record))
+
+
+def run_ranks(tmp: Path, config_path: Path, jobs: dict, world: int = 2, backend: str = "gloo") -> dict:
+    """Multi-process ``train`` runs of ``world`` ranks, a global batch of
+    one instance per rank, all jobs at once: for each job (label -> extra
+    train args) ``world`` ``train_rank_worker`` processes over a file
+    rendezvous of its own, in a ``backend`` group. Each job's records, in
+    rank order."""
+    code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.train_rank_worker()"
+    device = "cuda" if DEVICE.startswith("cuda") else "cpu"
+    procs = {}
+    for label, extra in jobs.items():
+        args = ["--config", str(config_path), "--workspace", str(tmp / label), "--batch_size_forward", str(world),
+                "--log_every", "1", "--seed", str(SEED), "--num_iterations", str(PARALLEL_STEPS), "--save_every",
+                "1000", *extra]
+        procs[label] = [subprocess.Popen([sys.executable, "-c", code, str(tmp / f"{label}_{r}.json"), str(r),
+                                          str(world), f"file://{tmp / (label + '.rendezvous')}", f"train_{label}",
+                                          device, backend, *args], cwd=str(ROOT)) for r in range(world)]
+    every = [p for ps in procs.values() for p in ps]
+    try:
+        for p in every:
+            p.wait(timeout=PARALLEL_TIMEOUT)
+    finally:
+        for p in every:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = {label: [p.returncode for p in ps] for label, ps in procs.items() if any(p.returncode for p in ps)}
+    if failed:
+        raise AssertionError(f"ranks exited with {failed}")
+    return {label: [json.loads((tmp / f"{label}_{r}.json").read_text()) for r in range(world)] for label in jobs}
+
+
+def check_ranks(label: str, ranks: list, expect: dict) -> list:
+    """A multi-process run's gates: every rank's launches the expected
+    count per micro-batch, and the ranks' whole states (FSDP's gathered)
+    equal tensor for tensor. Records the run's variants under
+    ``train_<label>``; returns each rank's wall s, peak and own state GiB,
+    step seconds and losses."""
+    for r, rec in enumerate(ranks):
+        want = {k: v * rec["micro"] for k, v in expect.items()}
+        if rec["counts"] != want:
+            raise AssertionError(f"train_{label} rank {r}: launches {rec['counts']}, expected {want}")
+    VARIANTS_BY_PATH[f"train_{label}"] = ranks[0]["variants"]
+    for rec in ranks[1:]:
+        differ = [k for k, d in ranks[0]["digests"].items() if rec["digests"].get(k) != d]
+        if differ or ranks[0]["digests"].keys() != rec["digests"].keys() or ranks[0]["scalars"] != rec["scalars"]:
+            raise AssertionError(f"train_{label}: the ranks' states differ in {len(differ)} tensors, e.g. "
+                                 f"{differ[:3]}, or in {ranks[0]['scalars']} vs {rec['scalars']}")
+    return [{k: rec[k] for k in ("wall_s", "peak_gib", "state_gib")} |
+            {"step_s": [x["t"] for x in rec["steps"]], "total": [x["total"] for x in rec["steps"]]}
+            for rec in ranks]
+
+
+def checkpoint_tensors(workspace: Path) -> dict:
+    """The parameters and EMA of a parallel run's last checkpoint (rank 0
+    wrote it), in ``state_distance``'s form."""
+    import torch
+
+    ckpt = workspace / "checkpoints" / str(PARALLEL_STEPS - 1)
+    named = {f"model.{k}": v for k, v in torch.load(ckpt / "model.pt", weights_only=True)["model"].items()}
+    ema = torch.load(ckpt.with_name(ckpt.name + "_ema") / "model.pt", weights_only=True)["model"]
+    named.update({f"ema.{k}": v for k, v in ema.items()})
+    return {"tensors": named, "scalars": {}}
+
+
+def split_reference(config_path: Path) -> dict:
+    """One process's PARALLEL_STEPS steps on the global batches the
+    parallel runs see (the command's sampler and seeds, its token count of
+    the low-resolution steps), each step's global batch taken as two
+    micro-batches of one instance (``train_iteration``'s mean of their
+    gradients): the ranks' arithmetic without the collectives. Its
+    parameters and EMA, in ``state_distance``'s form."""
+    import torch
+
+    from moge_tpu_torch.models.io import _ema_state_dict
+    from moge_tpu_torch.models.v2 import MoGeV2
+    from moge_tpu_torch.parallel.mesh import shard_batch
+    from moge_tpu_torch.scripts.train import batch_to_device, train_iteration
+    from moge_tpu_torch.train.dataloader import TrainDataLoaderPipeline
+    from moge_tpu_torch.train.step import init_train_state, make_apply_step, make_grad_step
+    from moge_tpu_torch.train.utils import build_optimizer
+
+    cfg = json.loads(config_path.read_text())
+    label_types = sorted(cfg["loss"])
+    dev = torch.device(DEVICE)
+    with dev:
+        module = MoGeV2(**cfg["model"]).init_random(seed=SEED)
+    tx = build_optimizer(module, cfg["optimizer"], cfg["lr_scheduler"])
+    state, apply_step = init_train_state(module, tx), make_apply_step(tx)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with TrainDataLoaderPipeline(dict(cfg["data"]), TRAIN_CLI_BATCH, random.Random(SEED), image_size_quantum=32) as pipe:
+        for _ in range(PARALLEL_STEPS):
+            while True:
+                batch_np = pipe.get()
+                if not all(lt == "invalid" for lt in batch_np["label_type"]):
+                    break
+            batch = batch_to_device(batch_np, label_types, dev)
+            halves = iter([shard_batch(batch, i, TRAIN_CLI_BATCH) for i in range(TRAIN_CLI_BATCH)])
+            grad_step = make_grad_step(module, cfg["loss"], label_types,
+                                       cfg["model"].get("num_tokens_range", [1200, 3600])[0], torch.bfloat16)
+            state, record, _ = train_iteration(state, grad_step, apply_step, lambda: next(halves), TRAIN_CLI_BATCH,
+                                               gen)
+            if record["grads_ok"] != 1.0:
+                raise AssertionError("the split reference skipped an update")
+    named = {f"model.{k}": v.detach().cpu() for k, v in module.state_dict().items()}
+    named.update({f"ema.{k}": v.detach().cpu() for k, v in _ema_state_dict(module.state_dict(),
+                                                                            state.ema_params).items()})
+    del module, state, tx
+    torch.cuda.empty_cache()
+    return {"tensors": named, "scalars": {}}
+
+
+def phase_parallel(card: str):
+    """The training command's parallel paths at full width on this one card:
+    v2.json's moge-2-vitl-normal over the synthetic datasets under a loss
+    table that draws nothing (``parallel_config``), a global batch of 2
+    for PARALLEL_STEPS steps. Two single-process runs (their difference is
+    the card's spread), and the split reference (``split_reference``: the
+    same steps in one process, each global batch as two micro-batches of
+    one instance, the ranks' arithmetic without their collectives).
+    ``train_nccl``: one rank of an NCCL group (``--multihost
+    --num_processes 1``), whose gradient all-reduce, one per step, must go
+    through the NCCL group with the gradients on the card. ``train_fsdp``:
+    the same NCCL rank with the sharded code path on (``Parallel.join``'s
+    ``shard``: FSDP2 units over a shard group of one, the DTensor
+    optimizer, clip and EMA, the checkpoint gathered by DTensor): DTensor's
+    gathers run on the functional collectives, which crash over gloo with
+    CUDA tensors, so two sharded ranks cannot share this card (the
+    multi-card check, ``phase_cards``, and the CPU tests run them).
+    ``train_dp``: two ranks on the card over gloo with CUDA tensors (NCCL
+    refuses two ranks on one device), each in its own process. Gates:
+    launches per rank and micro-batch, every one on its Hopper variant; the
+    sharded run's parameters all DTensors; the DP ranks' whole states equal
+    tensor for tensor; the parameters and EMA of the NCCL and FSDP runs (a
+    batch of 2 in one forward) within RESUME_MARGIN times the spread of the
+    first single-process run, the spread the largest distance among the
+    single-process runs and the other one-rank run, and of the DP run (a
+    batch of 1 per forward: bf16 GEMMs of another shape round apart) of the
+    split reference, the spread the largest distance among the
+    single-process and NCCL runs (RESUME_RTOL relative when the spread is
+    0); the split reference's
+    distance to the single-process run is reported. Peak memory per rank
+    and each rank's share of the training state are reported; the gloo
+    run's step times stage every gradient through host memory and are no
+    measure of NCCL."""
+    import contextlib
+    import shutil
+    import socket
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from moge_tpu_torch.parallel.distributed import Parallel
+    from moge_tpu_torch.parallel.mesh import local
+
+    root = ROOT / "workspace"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=root))
+    launches, stats = {}, {}
+    on_card = DEVICE.startswith("cuda")  # a CPU rehearsal's one rank is gloo's
+    try:
+        config_path = parallel_config(tmp)
+        cfg = json.loads(config_path.read_text())
+        expect = expected_train_launches(cfg["model"], cfg["loss"])
+        common = ["--num_iterations", str(PARALLEL_STEPS), "--save_every", "1000"]
+        singles = []
+        for i in range(2):
+            res, lines, wall_s, peak_gib, micro = run_train_cli(config_path, tmp / f"single_{i}", expect, 1,
+                                                                f"single process, run {i}", *common,
+                                                                path="train_single")
+            singles.append({"step_s": [x["t"] for x in lines], "total": [x["total"] for x in lines],
+                            "peak_gib": peak_gib, "wall_s": wall_s})
+            del res
+            torch.cuda.empty_cache()
+        launches["train_single"] = (expect, 2 * micro)
+        stats["single"] = singles
+
+        all_reduce, join = dist.all_reduce, Parallel.join
+        for label, shard in (("nccl", False), ("fsdp", True)):
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            calls = []
+
+            def recorded(tensor, *args, **kwargs):  # every all-reduce: its group's backend, device, size
+                group = kwargs.get("group", args[1] if len(args) > 1 else None)
+                calls.append((dist.get_backend(group), tensor.device.type, tensor.numel()))
+                return all_reduce(tensor, *args, **kwargs)
+
+            sharded = mock.patch.object(Parallel, "join", staticmethod(
+                lambda fsdp, device: join(fsdp, device, shard=True))) if shard else contextlib.nullcontext()
+            dist.all_reduce = recorded
+            try:
+                with sharded, torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    res, lines, wall_s, peak_gib, micro = run_train_cli(
+                        config_path, tmp / label, expect, 1, f"{label}, one NCCL rank", *common, "--multihost",
+                        "--coordinator", f"localhost:{port}", "--num_processes", "1", "--process_id", "0",
+                        path=f"train_{label}")
+            finally:
+                dist.all_reduce = all_reduce
+            state = res["state"]
+            params = list(state.module.parameters())
+            trainable = sum(p.numel() for p in params if p.requires_grad)
+            n_sharded = sum(isinstance(p, DTensor) for p in params)
+            if n_sharded != (len(params) if shard else 0):
+                raise AssertionError(f"train_{label}: {n_sharded} of {len(params)} parameters sharded")
+            own = [local(t) for t in params + list(state.ema_params.values())] + \
+                [local(v) for per in state.optimizer.adamw.state.values() for v in per.values() if v.dim() > 0]
+            state_gib = sum(t.numel() * t.element_size() for t in own) / 2 ** 30
+            del res, state, params, own
+            torch.cuda.empty_cache()
+            nccl = {e.key: e.count for e in prof.key_averages() if "nccl" in e.key.lower()}
+            grads = [c for c in calls if c == (("nccl", "cuda") if on_card else ("gloo", "cpu")) + (trainable,)]
+            log(f"[train_{label}] all-reduces (backend, device, elements): {calls}; NCCL kernels in the profile "
+                f"{nccl}; parameters sharded {n_sharded}; peak {peak_gib:.2f} GiB, own training state "
+                f"{state_gib:.2f} GiB")
+            if len(grads) != PARALLEL_STEPS:
+                raise AssertionError(f"train_{label}: {len(grads)} NCCL all-reduces of the {trainable} gradients "
+                                     f"on the card, expected one per step ({PARALLEL_STEPS}); all-reduces {calls}")
+            launches[f"train_{label}"] = (expect, micro)
+            stats[label] = {"step_s": [x["t"] for x in lines], "total": [x["total"] for x in lines],
+                            "peak_gib": peak_gib, "state_gib": state_gib, "wall_s": wall_s, "nccl_kernels": nccl,
+                            "all_reduces": calls}
+
+        ranks = run_ranks(tmp, config_path, {"dp": ()})["dp"]
+        stats["dp"] = check_ranks("dp", ranks, expect)
+        launches["train_dp"] = (expect, sum(rec["micro"] for rec in ranks))
+        log(f"[train_dp] two ranks over gloo on one card: {len(ranks[0]['digests'])} tensors of the whole state "
+            f"equal on both ranks; per rank peak {[round(x['peak_gib'], 2) for x in stats['dp']]} GiB, own "
+            f"training state {[round(x['state_gib'], 2) for x in stats['dp']]} GiB; step s (gloo rehearsal, "
+            f"gradients staged through host memory: not NCCL's) {[x['step_s'] for x in stats['dp']]} ({card})")
+
+        # each run's parameters and EMA against a one-process run of the same
+        # arithmetic, within RESUME_MARGIN x the card's spread, the largest
+        # distance among three other runs of the batch-2 arithmetic (as the
+        # resume check takes the largest repeat): NCCL's and FSDP's (one rank,
+        # a batch of 2) against the first single-process run, the spread among
+        # the two single-process runs and the other one-rank run; DP's (a
+        # batch of 1 per rank) against the split reference, the spread among
+        # the single-process runs and the NCCL rank's
+        runs = {name: checkpoint_tensors(tmp / name) for name in ("single_0", "single_1", "nccl", "fsdp")}
+        first = runs["single_0"]
+        split = split_reference(config_path)
+
+        def widest(names):  # the largest distance among these runs of one arithmetic
+            pairs = [state_distance(runs[a], runs[b]) for i, a in enumerate(names) for b in names[i + 1:]]
+            return {"l2": {p: max(d["l2"][p] for d in pairs) for p in pairs[0]["l2"]},
+                    "identical": all(d["identical"] for d in pairs)}
+
+        spreads = {"nccl": widest(["single_0", "single_1", "fsdp"]), "fsdp": widest(["single_0", "single_1", "nccl"]),
+                   "dp": widest(["single_0", "single_1", "nccl"])}
+        norm = {p: max(sum(v.double().square().sum().item() for k, v in first["tensors"].items()
+                           if k.split(".")[0] == p) ** 0.5, 1e-30) for p in spreads["nccl"]["l2"]}
+        stats["spread_l2"] = {label: d["l2"] for label, d in spreads.items()}
+        stats["distance_l2"] = {"split_vs_single": state_distance(first, split)["l2"]}
+        for label, ref, ref_name in (("nccl", first, "the single-process run"),
+                                     ("fsdp", first, "the single-process run"), ("dp", split, "the split reference")):
+            run_tensors = runs[label] if label in runs else checkpoint_tensors(tmp / label)
+            d, spread = state_distance(ref, run_tensors), spreads[label]
+            stats["distance_l2"][label] = d["l2"]
+            stats["distance_l2"][f"{label}_vs_single"] = state_distance(first, run_tensors)["l2"]
+            if spread["identical"]:
+                ok = all(d["l2"][p] <= RESUME_RTOL * norm[p] for p in norm)
+            else:
+                ok = all(d["l2"][p] <= RESUME_MARGIN * spread["l2"][p] for p in norm)
+            log(f"[train_{label}] parameters and EMA after {PARALLEL_STEPS} steps, L2 distance to {ref_name} "
+                f"{d['l2']} (bit-identical {d['identical']}; to the single-process run "
+                f"{stats['distance_l2'][f'{label}_vs_single']}); the card's spread {spread['l2']} (bit-identical "
+                f"{spread['identical']}): within {RESUME_MARGIN} x the spread: {ok}")
+            if not ok:
+                raise AssertionError(f"train_{label}: {d['l2']} off {ref_name}, spread {spread['l2']}")
+        log(f"[parallel] the split reference (a batch of 1 per forward) off the single-process run (a batch of 2): "
+            f"{stats['distance_l2']['split_vs_single']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[parallel] step s: single process {[x['step_s'] for x in stats['single']]}, NCCL one rank "
+        f"{stats['nccl']['step_s']}, FSDP one NCCL rank {stats['fsdp']['step_s']}; peak GiB: single "
+        f"{[round(x['peak_gib'], 2) for x in stats['single']]}, NCCL {stats['nccl']['peak_gib']:.2f}, FSDP "
+        f"{stats['fsdp']['peak_gib']:.2f}, DP per rank {[round(x['peak_gib'], 2) for x in stats['dp']]} ({card})")
+    return launches, stats
+
+
+def phase_cards(card: str, fsdps=(1, 2, 4)):
+    """The training command's parallel paths over every card of this host
+    by NCCL (``python3 chip_smoke.py --cards``, on a host with several
+    cards; the one-card run does not take this phase): ``parallel_config``,
+    a global batch of one instance per card, PARALLEL_STEPS steps. Two
+    one-card runs on card 0 (one process, the global batch in one forward:
+    their distance is the card's spread), then one process per card
+    (``train_rank_worker`` in an NCCL group) at each ``--fsdp`` of
+    ``fsdps`` that divides the card count, one run at a time. Gates:
+    launches per rank and micro-batch on Hopper variants, the ranks' whole
+    states equal, and each sharded run's parameters and EMA within
+    RESUME_MARGIN times the spread of the ``--fsdp 1`` run's (the same
+    arithmetic on each card, other collectives). Reports per rank peak
+    memory, own share of the training state and step seconds, and the
+    distances."""
+    import shutil
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise SystemExit(f"--cards needs several cards, this host has {cards}")
+    root = ROOT / "workspace"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cards_", dir=root))
+    stats = {"cards": cards}
+    try:
+        config_path = parallel_config(tmp)
+        cfg = json.loads(config_path.read_text())
+        expect = expected_train_launches(cfg["model"], cfg["loss"])
+        for i in range(2):
+            _, lines, wall_s, peak_gib, _ = run_train_cli(
+                config_path, tmp / f"one_card_{i}", expect, 1, f"one card, run {i}", "--num_iterations",
+                str(PARALLEL_STEPS), "--save_every", "1000", "--batch_size_forward", str(cards), path="train_single")
+            stats[f"one_card_{i}"] = {"step_s": [x["t"] for x in lines], "total": [x["total"] for x in lines],
+                                      "peak_gib": peak_gib, "wall_s": wall_s}
+            torch.cuda.empty_cache()
+        spread = state_distance(*(checkpoint_tensors(tmp / f"one_card_{i}") for i in range(2)))
+        stats["spread_l2"] = spread["l2"]
+        runs = [f for f in fsdps if cards % f == 0]
+        for f in runs:
+            ranks = run_ranks(tmp, config_path, {f"cards_fsdp{f}": ("--fsdp", str(f))}, world=cards,
+                              backend="nccl")[f"cards_fsdp{f}"]
+            stats[f"fsdp{f}"] = check_ranks(f"cards_fsdp{f}", ranks, expect)
+            log(f"[cards] {cards} NCCL ranks at --fsdp {f}: per rank peak "
+                f"{[round(x['peak_gib'], 2) for x in stats[f'fsdp{f}']]} GiB, own training state "
+                f"{[round(x['state_gib'], 3) for x in stats[f'fsdp{f}']]} GiB, step s "
+                f"{[x['step_s'] for x in stats[f'fsdp{f}']]} ({card})")
+        first = checkpoint_tensors(tmp / f"cards_fsdp{runs[0]}")
+        stats["distance_l2"], ok = {}, True
+        for f in runs[1:]:
+            d = state_distance(first, checkpoint_tensors(tmp / f"cards_fsdp{f}"))
+            stats["distance_l2"][f"fsdp{f}"] = d["l2"]
+            ok &= all(d["l2"][p] <= RESUME_MARGIN * spread["l2"][p] for p in d["l2"])
+        stats["distance_l2"]["one_card"] = state_distance(first, checkpoint_tensors(tmp / "one_card_0"))["l2"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[cards] parameters and EMA, L2 distance to --fsdp {runs[0]}: {stats['distance_l2']}; the card's spread "
+        f"{stats['spread_l2']}: the sharded runs within {RESUME_MARGIN} x the spread: {ok}")
+    if not ok:
+        raise AssertionError(f"--cards: {stats['distance_l2']} off --fsdp {runs[0]}, spread {stats['spread_l2']}")
+    return stats
+
+
 def giant_config() -> dict:
     """moge-2-vitl-normal on the giant DINOv2 (dinov2_vitg14, its layers 9,
     19, 29 and 39), the scale head reading its 1536-wide cls token."""
@@ -2311,10 +2899,13 @@ REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "
                "exp_dense_v1": 0, "exp_dense_v1_unroll": 0, "exp_dense_v2": 0, "exp_dense_bf16": 0}
 
 
-def main() -> int:
+def main(argv=None) -> int:
     global CLOCK_HZ
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--cards"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--cards]; got {argv}")
     card = phase_device()
     if not (ROOT / "moge_tpu_torch").is_dir():
         raise RuntimeError(f"moge_tpu_torch/ not found beside {Path(__file__).name}: run it from a checkout")
@@ -2328,6 +2919,10 @@ def main() -> int:
         f"{roofline.SMS * roofline.FP32_LANES_PER_SM * CLOCK_HZ / 1e12:.2f} T instr/s, MUFU "
         f"{roofline.SMS * roofline.MUFU_PER_SM * CLOCK_HZ / 1e12:.3f} T/s")
     phase_build()
+    if argv == ["--cards"]:
+        print(json.dumps({"cards": phase_cards(card)}))
+        print(card)
+        return 0
     kernel_results = {**phase_kernels(), **phase_kernels_train()}
     # each path is driven with the counters set to 0 just before each of its
     # runs and read just after; every run of a path launches the same counts
@@ -2351,6 +2946,9 @@ def main() -> int:
     phase_train_parity()
     torch.cuda.empty_cache()
     launches["train_cli"], train_cli_stats = phase_train_cli(card)
+    launches["train_v1"], train_v1_stats = phase_train_v1(card)
+    parallel_launches, parallel_stats = phase_parallel(card)
+    launches.update(parallel_launches)
     launches["giant"], giant_stats = phase_giant(card)
     phase_vis_data()
     kernels = []
@@ -2371,7 +2969,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
                       "serve": serve_stats, "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
                       "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
-                      "giant": giant_stats,
+                      "train_v1": train_v1_stats, "parallel": parallel_stats, "giant": giant_stats,
                       "probes": probe_tables}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,7 +81,8 @@ def command():
     @click.option("--version", "model_version", type=click.Choice(["v1", "v2"]), default="v1", help="Model version.")
     @click.option("--device", "device_name", type=str, default="cuda", show_default=True,
                   help="Torch device; no fallback to the CPU when it is missing.")
-    @click.option("--fp16", "use_fp16", is_flag=True, help="Use bf16 compute.")
+    @click.option("--fp16", "use_fp16", is_flag=True,
+                  help="Accepted for the reference's interface; bf16 compute is the default.")
     @click.option("--resize", "resize_to", type=int, default=None, help="Resize the panorama before processing.")
     @click.option("--resolution_level", type=int, default=9, help="Resolution level [0-9].")
     @click.option("--threshold", type=float, default=0.03, help="Edge threshold for mesh export.")
@@ -121,8 +122,9 @@ def command():
             warnings.warn("No output format specified. Defaults to saving all.")
             save_maps_ = save_glb_ = save_ply_ = True
 
+        # bf16, as the JAX command's from_pretrained
         model = import_model_class_by_version(model_version).from_pretrained(
-            pretrained_path, device=device, dtype=torch.bfloat16 if use_fp16 else torch.float32)
+            pretrained_path, device=device, dtype=torch.bfloat16)
 
         for image_path in image_paths:
             image = cv2.cvtColor(cv2.imread(str(image_path)), cv2.COLOR_BGR2RGB)

@@ -14,6 +14,12 @@ sampler gives under ``random.seed(s)``. Each instance's augmentation draws
 from ``np.random.default_rng`` of the seed the sampler gave it, as in JAX.
 ``image_size_quantum`` rounds each batch's size down to a multiple (the JAX
 train command patches its sampler to do so).
+
+In a multi-process run ``batch_size`` is the global batch: rank ``rank`` of
+``world`` runs the same sampler on the same stream, draws every instance's
+descriptor and loads and augments only its share (``local_share``), so the
+ranks' batches, in rank order, are the single-process batch instance for
+instance.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.distributed import local_share
 from ..utils import pipeline
 from ..utils.data_augmentation import image_color_augmentation, sample_perspective, warp_perspective
 from ..utils.geometry_numpy import (
@@ -39,9 +46,11 @@ __all__ = ["TrainDataLoaderPipeline"]
 
 class TrainDataLoaderPipeline:
     def __init__(self, config: dict, batch_size: int, rng: random.Random, image_size_quantum: Optional[int] = None,
-                 num_load_workers: int = 4, num_process_workers: int = 8, buffer_size: int = 8):
+                 num_load_workers: int = 4, num_process_workers: int = 8, buffer_size: int = 8, rank: int = 0,
+                 world: int = 1):
         self.config = config
         self.batch_size = batch_size
+        self.share = local_share(batch_size, rank, world)
         self.rng = rng
         self.image_size_quantum = image_size_quantum
         self.clamp_max_depth = config["clamp_max_depth"]
@@ -73,7 +82,7 @@ class TrainDataLoaderPipeline:
             pipeline.Unbatch(),
             pipeline.Parallel([self._load_instance] * num_load_workers),
             pipeline.Parallel([self._process_instance] * num_process_workers),
-            pipeline.Batch(self.batch_size),
+            pipeline.Batch(self.share.stop - self.share.start),
             self._collate_batch,
             pipeline.Buffer(buffer_size),
         ])
@@ -119,6 +128,7 @@ class TrainDataLoaderPipeline:
             q = self.image_size_quantum
             if q:
                 width, height = max(q, width // q * q), max(q, height // q * q)
+            batch = batch[self.share]
             for inst in batch:
                 inst["width"], inst["height"] = width, height
             yield batch

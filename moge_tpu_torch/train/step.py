@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.alignment import align_points_scale_xyz_shift
 from ..ops.geometry import depth_map_to_point_map
+from ..parallel.mesh import whole
 from . import losses as L
 from .utils import Optimizer
 
@@ -169,18 +170,28 @@ def compute_losses(gen: torch.Generator, output: Dict[str, torch.Tensor], batch:
 
 
 def make_grad_step(module: nn.Module, loss_config: Dict[str, Dict], label_types: Sequence[str], num_tokens: int,
-                   dtype: torch.dtype = torch.bfloat16) -> Callable:
+                   dtype: torch.dtype = torch.bfloat16, ranks=None) -> Callable:
     """``grad_step(batch, gen) -> (grads, metrics)``: forward in ``dtype``,
     losses, backward; no update. ``grads`` holds every trainable parameter's
-    gradient by state-dict name (zeros where the loss does not reach it)."""
+    gradient by state-dict name (zeros where the loss does not reach it).
+    With ``ranks`` (a multi-process ``parallel.distributed.Parallel``) the
+    batch is this rank's share, and 'monitoring.std' is taken over every
+    rank's (the one metric a mean over the ranks would not give)."""
+
+    def trainable():
+        # read anew each time: a sharded (FSDP) module swaps a unit's parameters
+        # for gathered ones while the unit is gathered, and back after
+        return [(n, p) for n, p in module.named_parameters() if p.requires_grad]
 
     def grad_step(batch: Dict[str, torch.Tensor], gen: torch.Generator):
-        params = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
-        for _, p in params:
+        for _, p in trainable():
             p.grad = None
         output = module(batch["image"], num_tokens, dtype)
         total, metrics = compute_losses(gen, output, batch, loss_config, label_types)
+        if ranks is not None and ranks.mesh is not None and output.get("points") is not None:
+            metrics["monitoring.std"] = ranks.std(output["points"])
         total.backward()
+        params = trainable()
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in params}
         for _, p in params:
             p.grad = None
@@ -197,7 +208,8 @@ def make_apply_step(tx: Optimizer, ema_decay: float = 0.999) -> Callable:
 
     @torch.no_grad()
     def apply_step(state: TrainState, grads: Grads):
-        grads_ok = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        # the count over the whole gradients: under FSDP every rank's shards, so all agree
+        grads_ok = bool(whole(sum((~torch.isfinite(g)).sum() for g in grads.values())) == 0)
         if grads_ok:
             tx.step(grads)
         if state.ema_params is not None:

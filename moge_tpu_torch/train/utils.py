@@ -82,9 +82,14 @@ def build_lr_schedule(config: Dict[str, Any], group_index: int = 0) -> Callable[
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float) -> Dict[str, torch.Tensor]:
     """optax's clip: g unchanged when ||g|| < max_norm, else g / ||g|| * max_norm
-    (no epsilon), with ||g|| the fp32 norm over every gradient."""
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
-    return {k: torch.where(norm < max_norm, g, g / norm.to(g.dtype) * max_norm) for k, g in grads.items()}
+    (no epsilon), with ||g|| the fp32 norm over every gradient. Sharded
+    (FSDP) gradients: the norm is gathered whole (DTensor's reduction over
+    the shard group), so each shard is clipped by the whole norm."""
+    from ..parallel.mesh import like, local, whole
+
+    norm = torch.sqrt(whole(sum(g.float().square().sum() for g in grads.values())))
+    return {k: like(g, torch.where(norm < max_norm, local(g), local(g) / norm.to(g.dtype) * max_norm))
+            for k, g in grads.items()}
 
 
 class Optimizer:
@@ -129,21 +134,30 @@ class Optimizer:
 
     def state_dict(self) -> Dict[str, Any]:
         """The update count (the schedules' step) and AdamW's state dict
-        (moments and step per parameter; references, not copies)."""
+        (moments and step per parameter; references, not copies; sharded
+        like their parameters under FSDP)."""
         return {"count": self.count, "adamw": self.adamw.state_dict()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore a ``state_dict`` of an optimizer built from the same
         module and config (AdamW moves the moments to the parameters'
-        device). The optimizer keeps no tensor of ``state``: AdamW takes a
-        tensor already on its parameter's device and dtype (and the step
-        counts always) as it is, and would update it in place."""
-        given = {v.data_ptr() for per in state["adamw"]["state"].values() for v in per.values()
+        device). Whole moments of a sharded parameter are cut to this
+        rank's shard. The optimizer keeps no tensor of ``state``: AdamW
+        takes a tensor already on its parameter's device and dtype (and the
+        step counts always) as it is, and would update it in place."""
+        from ..parallel.mesh import distribute_like, local
+
+        params = [p for group in self.adamw.param_groups for p in group["params"]]
+        adamw = {**state["adamw"], "state": {
+            i: {k: distribute_like(v, params[i]) if isinstance(v, torch.Tensor) and v.shape == params[i].shape else v
+                for k, v in per.items()}
+            for i, per in state["adamw"]["state"].items()}}
+        given = {v.untyped_storage().data_ptr() for per in state["adamw"]["state"].values() for v in per.values()
                  if isinstance(v, torch.Tensor)}
-        self.adamw.load_state_dict(state["adamw"])
+        self.adamw.load_state_dict(adamw)
         for per in self.adamw.state.values():
             for k, v in per.items():
-                if isinstance(v, torch.Tensor) and v.data_ptr() in given:
+                if isinstance(v, torch.Tensor) and local(v).untyped_storage().data_ptr() in given:
                     per[k] = v.clone()
         self.count = int(state["count"])
 

@@ -161,6 +161,8 @@ def test_infer_panorama_cli_writes_the_maps_and_warns_on_show(tmp_path):
     model = MoGeModel(config, "cpu", torch.float32).init_random(seed=0)
     make_points_perspective(model.module)
     torch.save({"model_config": config, "model": model.module.state_dict()}, tmp_path / "model.pt")
+    # the oracle computes in the command's default dtype, bf16, as the JAX command does
+    model = MoGeModel.from_pretrained(tmp_path / "model.pt", device="cpu", dtype=torch.bfloat16)
     image = _write_image(tmp_path / "pano.png", 64, 128, seed=5)
     with pytest.warns(UserWarning, match="headless"):
         result = CliRunner().invoke(infer_panorama.command(), [
@@ -173,6 +175,37 @@ def test_infer_panorama_cli_writes_the_maps_and_warns_on_show(tmp_path):
     want = infer_panorama.infer_panorama(model, image, merge_solver="cg")
     np.testing.assert_allclose(read_exr(save / "depth.exr"), want["depth"].numpy(), rtol=1e-6)
     assert read_exr(save / "points.exr").shape == (64, 128, 3)
+
+
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_infer_panorama_computes_in_the_jax_commands_dtype(checkpoints, tmp_path, monkeypatch, version):
+    """Under default flags the panorama command's model computes in the dtype
+    of JAX's ``from_pretrained``, which its command loads through (bf16),
+    and ``--fp16`` keeps it."""
+    import inspect
+
+    from click.testing import CliRunner
+
+    from moge_tpu.models.v1 import MoGeModel as JaxV1
+    from moge_tpu.models.v2 import MoGeModel as JaxV2
+
+    jax_cls = {"v1": JaxV1, "v2": JaxV2}[version]
+    want = getattr(torch, np.dtype(inspect.signature(jax_cls.from_pretrained).parameters["dtype"].default).name)
+    seen = []
+
+    def record(model, image, **kwargs):
+        seen.append(model.dtype)
+        h, w = image.shape[:2]
+        return {"depth": torch.ones(h, w), "mask": torch.ones(h, w, dtype=torch.bool), "points": torch.ones(h, w, 3)}
+
+    monkeypatch.setattr(infer_panorama, "infer_panorama", record)
+    _write_image(tmp_path / "pano.png", 32, 64, seed=6)
+    for extra in ([], ["--fp16"]):
+        result = CliRunner().invoke(infer_panorama.command(), [
+            "-i", str(tmp_path / "pano.png"), "-o", str(tmp_path / "out"), "--pretrained", str(checkpoints[version]),
+            "--version", version, "--device", "cpu", "--maps", *extra])
+        assert result.exit_code == 0, result.output
+    assert seen == [want, want] and want == torch.bfloat16
 
 
 def test_eval_baseline_oracle_and_dumps(checkpoints, tmp_path):

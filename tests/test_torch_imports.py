@@ -76,3 +76,21 @@ def test_the_guard_sees_nested_imports(tmp_path):
 def test_models_default_to_the_card(cls):
     assert inspect.signature(cls.__init__).parameters["device"].default == "cuda"
     assert inspect.signature(cls.from_pretrained).parameters["device"].default == "cuda"
+
+
+def test_the_guards_cover_the_parallel_modules():
+    """The parallel layer (``moge_tpu_torch/parallel/``) is among the
+    sources both guards parse, and imports neither JAX nor the JAX package."""
+    parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
+    assert parallel == {"__init__.py", "distributed.py", "mesh.py"}
+    for path in SOURCES:
+        if path.parent.name == "parallel":
+            assert not {root for _, root in _imported_roots(path)} & FORBIDDEN, path
+
+
+def test_the_train_command_defaults_to_the_card():
+    """The training command's ``--device`` (and so its workers') defaults to cuda."""
+    from moge_tpu_torch.scripts import train
+
+    device = next(p for p in train.command().params if p.name == "device_name")
+    assert device.default == "cuda"

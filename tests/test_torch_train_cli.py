@@ -3,8 +3,8 @@ with the tiny MoGe-2 and synthetic datasets (``write_train_dataset``):
 the logs and checkpoints it writes, under the JAX command's file names and
 keys; the full-state checkpoint round trip and the step after a resume, bit
 for bit; two resumes from one checkpoint giving the same losses; gradient
-accumulation against one step on the concatenated batch; the JAX-only flags
-and a missing card refused; the DINOv2 hub graft of
+accumulation against one step on the concatenated batch; the XLA-only flags
+and parallel flags this run cannot honour, and a missing card, refused; the DINOv2 hub graft of
 ``--backbone_checkpoint``; and the learning rates after a resume against
 the JAX package's schedule at the restored update count."""
 
@@ -286,6 +286,11 @@ def test_vis_every_writes_the_pictures(train_config, tmp_path):
                                   ["--scan_blocks"], ["--split_loss_programs", "on"]],
                          ids=lambda f: f[0].lstrip("-"))
 def test_jax_only_flags_are_refused(train_config, tmp_path, flag):
+    """The XLA-only switches refuse any value but their default; the
+    parallel flags, ported, refuse what this one-process CPU run cannot
+    honour: ``--fsdp 2`` (one process), ``--multihost`` without its job
+    (rendezvous, world size, rank), and the job's flags without
+    ``--multihost``. Nothing is written."""
     from click.testing import CliRunner
 
     result = CliRunner().invoke(cli.command(), ["train", "--config", str(train_config), "--workspace",

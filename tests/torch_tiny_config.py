@@ -264,3 +264,59 @@ def write_train_dataset(root, n_instances=3, hw=(96, 128), seed=0):
         (folder / ".index.txt").write_text("\n".join(names))
         ds["path"] = str(folder)
     return datasets
+
+
+def whole_train_state(state, gen):
+    """A train state with every sharded tensor gathered whole (a collective:
+    under FSDP every rank calls), on the CPU: {'tensors': by name, the
+    module's state dict as 'model.*', AdamW's moments and steps as
+    'adamw.<index>.*', the EMA as 'ema.*'; 'scalars': step, update count,
+    learning rates, generator state}."""
+    from moge_tpu_torch.parallel.mesh import whole
+
+    named = {f"model.{k}": v for k, v in state.module.state_dict().items()}
+    for i, per in state.optimizer.adamw.state_dict()["state"].items():
+        named.update({f"adamw.{i}.{k}": v for k, v in per.items()})
+    named.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+    scalars = {"step": state.step, "count": state.optimizer.count, "lrs": state.optimizer.lrs(),
+               "gen": gen.get_state().tolist()}
+    return {"tensors": {k: whole(v).detach().cpu().clone() for k, v in named.items()}, "scalars": scalars}
+
+
+def run_train_rank(train_args, rank, world, rendezvous, device="cpu", backend="gloo"):
+    """One rank of a multi-process ``train`` run in this process: joins a
+    ``backend`` process group of ``world`` at ``rendezvous`` (a ``file://`` URL),
+    runs ``cli train --multihost`` on ``device`` with ``train_args``, and
+    returns (the command's result, ``whole_train_state`` of its state). The
+    group outlives the command (it keeps a group it did not make) for the
+    gathers, then ends."""
+    import torch.distributed as dist
+
+    from moge_tpu_torch.parallel.distributed import initialize_distributed
+    from moge_tpu_torch.scripts import cli
+
+    initialize_distributed(rendezvous, world, rank, backend)
+    try:
+        args = ["train", *train_args, "--multihost", "--coordinator", rendezvous, "--num_processes", str(world),
+                "--process_id", str(rank), "--device", device]
+        result = cli.command().main(args, standalone_mode=False)
+        return result, whole_train_state(result["state"], result["gen"])
+    finally:
+        dist.destroy_process_group()
+
+
+def train_rank_main():
+    """``python -c`` entry of one rank for the tests: argv is <out file>
+    <rank> <world> <rendezvous> <compute dtype> <train args...>; writes
+    {'state', 'steps'} to the out file with ``torch.save``."""
+    import sys
+
+    import torch
+
+    from moge_tpu_torch.scripts import train
+
+    torch.set_num_threads(1)
+    out, rank, world, rendezvous, dtype, *train_args = sys.argv[1:]
+    train.COMPUTE_DTYPE = getattr(torch, dtype)
+    result, whole = run_train_rank(train_args, int(rank), int(world), rendezvous)
+    torch.save({"state": whole, "steps": result["steps"]}, out)
