@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, serving, panorama, eval, training (step, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, serving (sequence-parallel and int8 too), panorama, eval, training (step, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -55,6 +55,22 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    model, 32 requests from 8 client threads (half with ``fov_x``), every
    answer against its image's own batch-1 ``infer``; requests/s, mean
    batch, p50/p90 latency, launch counters per batch;
+7b. sequence parallelism: K2 at the SP shapes (3601 tokens over 2 ranks,
+   1370 over 2 and over 4: Nq the chunk, Nkv ranks x chunk, the padding
+   keys masked) against its plain version; then two gloo ranks on this one
+   card, each ``moge-2-vitl-normal`` from the seed with a point map of
+   known perspective, ``infer`` at 518^2 and 1369 and 3600 tokens against
+   one process on the same weights and against each other, launch counters
+   per rank and forward, warm latency of both; then 4 requests over HTTP
+   to a server on rank 0 over a ``Leader`` (the other rank follows), each
+   answer against its image's batch-1 ``infer``;
+7c. int8: the W8A8 product (``torch._int_mm``) on the card against the
+   CPU's plain version at the ViT-L projections (rows 1370 and 28808),
+   operands, accumulators and outputs identical, times beside bf16
+   F.linear; ViT-L int8 ``infer`` against bf16 at 1369 tokens batch 1 and
+   3600 tokens batch 8 (launch counters, 96 int8 products a forward, warm
+   medians, drift within tests/test_quant.py's bounds); 8 requests through
+   the micro-batcher over the int8 model, each against its batch-1 infer;
 8. MoGe-1: ``moge-vitl`` bf16 at full width with a point map of known
    perspective in its points head, three ``infer`` requests with launch
    counters per forward, each request's focal, shift and depth held to the
@@ -127,7 +143,8 @@ batch for ``serve``, one 12-view panorama for ``panorama``, one sample for
 ``eval``, one step for ``train``, one micro-batch for ``train_cli``,
 ``train_v1``, ``train_single``, ``train_nccl`` and ``train_fsdp``, one
 rank's micro-batch for ``train_dp``, the
-three tools' measurements for ``probes``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
+three tools' measurements for ``probes``, one rank's forward or serving
+batch for ``sp``, one forward or batch for ``int8``); ``bound_ms``/``bound_by`` and ``library_ms`` belong to the
 reported case of phase 3; ``ms``, ``plain_ms`` and ``library_ms`` are
 medians by CUDA events around each call for every kernel, and K1, K2,
 K2b-dq, K2b-dkv, K3, K3-grouped and T1 add ``device_ms``,
@@ -141,9 +158,10 @@ gives each path's launches per run by kernel variant;
 beside it, it exits nonzero and prints no result.
 
 ``python3 chip_smoke.py --cards``, on a host with several cards, runs
-phases 1-2 and then only the multi-card check (``phase_cards``: the
+phases 1-2 and then only the multi-card checks (``phase_cards``: the
 training command over every card by NCCL at ``--fsdp`` 1, 2 and 4 against
-one card) and prints its numbers as a JSON line.
+one card; ``phase_sp_cards``: sequence-parallel ``infer`` over 2 and 4
+cards by NCCL against one card) and prints their numbers as a JSON line.
 """
 
 from __future__ import annotations
@@ -259,6 +277,27 @@ PARALLEL_TIMEOUT = 900  # seconds for one two-process run
 GIANT_TOKENS = 1369
 GIANT_HW = 518
 VIS_MAX_DEPTH = 1.5  # vis_data -m: keep points nearer than 1.5 x the nearest depth
+# sequence parallelism: K2 at the SP shapes (real tokens, ranks, batch): Nq = the chunk, Nkv = ranks
+# x chunk (batch 2: the served Leader's batches), and K1 on each shape's batch x chunk rows;
+# SP_WORLD gloo ranks on the one card, each with moge-2-vitl-normal from SEED, infer at SP_HW^2 and
+# SP_TOKENS against one process on the same weights (compare_answers' bounds: bf16 GEMMs round by
+# shape), SP_REPEATS warm calls timed; SP_REQUESTS served through a Leader, SP_CLIENTS at a time
+SP_K2_SHAPES = ((3601, 2, 1), (1370, 2, 1), (1370, 4, 1), (1370, 2, 2))
+SP_WORLD = 2
+SP_HW = 518
+SP_TOKENS = (1369, 3600)
+SP_REPEATS = 3
+SP_REQUESTS = 4
+SP_CLIENTS = 2
+SP_TIMEOUT = 600  # seconds for one run of ranks
+# int8: the product at the ViT-L projections' (K, N) (qkv, proj, fc1, fc2) and rows (batch 1 at 1369
+# tokens, batch 8 at 3600), card against CPU; ViT-L int8 infer against bf16 at INT8_RUNS (tokens,
+# batch), the drift held to tests/test_quant.py's bound; SERVE_REQUESTS through the micro-batcher
+INT8_GEMMS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+INT8_ROWS = (1370, 8 * 3601)
+INT8_RUNS = ((1369, 1), (3600, 8))
+INT8_DRIFT = 0.05
+INT8_REPEATS = 3
 
 
 def log(*args):
@@ -384,12 +423,54 @@ def conv_bound(x, kern, res):
     return bound(x.dtype, flops=2 * B * H * W * 9 * C * O, bytes_moved=moved)
 
 
+def layer_norm_case(gen, m: int, d: int, offset: int = 0, variant: str = "vec16", label: str = "K1",
+                    host: bool = False) -> tuple:
+    """K1 on an (m, d) bf16 input (a view at ``offset`` elements into its
+    storage) against its plain version: within one bf16 ulp at the output's
+    largest magnitude, on ``variant``; times beside F.layer_norm (and the
+    host's way to the launch with ``host``). Returns the case in phase 3's
+    form."""
+    import torch
+
+    from moge_tpu_torch.ops import _build, norm
+    from moge_tpu_torch.tools import roofline
+
+    dev = torch.device(DEVICE)
+    x = ((torch.randn(m * d + offset, generator=gen, device=dev) * 3.0).to(torch.bfloat16) + 1.0)[offset:].view(m, d)
+    s = torch.randn(d, generator=gen, device=dev)
+    b = torch.randn(d, generator=gen, device=dev)
+    before = dict(norm.VARIANT_LAUNCHES)
+    got = norm.layer_norm_fp32(x, s, b).float()
+    took = [k for k, v in norm.VARIANT_LAUNCHES.items() if v != before[k]]
+    want = norm.layer_norm_plain(x.float(), s, b)
+    err = (got - want).abs().max().item()
+    tol = want.abs().max().item() * 2.0 ** -8
+    ms, plain_ms, lib_ms, dev_ms = call_times(lambda: norm.layer_norm_fp32(x, s, b),
+                                              lambda: norm.layer_norm_plain(x, s, b), library_layer_norm(x, s, b))
+    bnd = bound(bytes_moved=2 * m * d * x.element_size() + 2 * d * 4, fp32_instr=4 * m * d)
+    line = (f"[{label}] M={m} D={d}{f' offset {offset}' if offset else ''} ({took}, "
+            f"{norm.ln_plan(m, d, x.dtype, x.data_ptr(), _build.sm_count(dev))}): max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'F.layer_norm')}; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    if host:  # the host's way to the launch, beside the library call's
+        host_us = {"host_us": roofline.host_us(lambda: norm.layer_norm_fp32(x, s, b)),
+                   "library_host_us": roofline.host_us(library_layer_norm(x, s, b))}
+        dev_ms = {**dev_ms, **host_us}
+        line += (f"; host us per call: kernel {host_us['host_us']:.2f}, F.layer_norm "
+                 f"{host_us['library_host_us']:.2f}")
+    log(line)
+    if not err <= tol:
+        raise AssertionError(f"K1 LayerNorm disagrees at M={m} D={d}: {err} > {tol}")
+    if took != [variant]:
+        raise AssertionError(f"K1 at M={m} D={d} offset {offset} took {took}, not {variant}")
+    return err, ms, plain_ms, lib_ms, bnd, dev_ms
+
+
 def phase_kernels():
     """Each kernel vs its plain version (fp32 from the same bf16 inputs)."""
     import torch
 
-    from moge_tpu_torch.ops import _build, attention, conv, norm
-    from moge_tpu_torch.tools import roofline
+    from moge_tpu_torch.ops import attention, conv
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -412,33 +493,7 @@ def phase_kernels():
                                   (8 * 3601, 1024, 0, "vec16"), (pano_b * pano_n, 1024, 0, "vec16"),
                                   (eval_b * eval_n, 1024, 0, "vec16"), (37, 192, 0, "vec16"),
                                   (1370, 1024, 1, "scalar"), (GIANT_TOKENS + 1, 1536, 0, "vec16")):
-        x = (randn(m * d + offset, scale=3.0) + 1.0)[offset:].view(m, d)
-        s = torch.randn(d, generator=gen, device=dev)
-        b = torch.randn(d, generator=gen, device=dev)
-        before = dict(norm.VARIANT_LAUNCHES)
-        got = norm.layer_norm_fp32(x, s, b).float()
-        took = [k for k, v in norm.VARIANT_LAUNCHES.items() if v != before[k]]
-        want = norm.layer_norm_plain(x.float(), s, b)
-        err = (got - want).abs().max().item()
-        tol = want.abs().max().item() * 2.0 ** -8
-        ms, plain_ms, lib_ms, dev_ms = call_times(lambda: norm.layer_norm_fp32(x, s, b),
-                                                  lambda: norm.layer_norm_plain(x, s, b), library_layer_norm(x, s, b))
-        bnd = bound(bytes_moved=2 * m * d * x.element_size() + 2 * d * 4, fp32_instr=4 * m * d)
-        line = (f"[K1] M={m} D={d}{f' offset {offset}' if offset else ''} ({took}, "
-                f"{norm.ln_plan(m, d, x.dtype, x.data_ptr(), _build.sm_count(dev))}): max_abs_err {err:.3e} "
-                f"(tol {tol:.3e}), {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'F.layer_norm')}; "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-        if m == 1370 and not offset:  # the host's way to the launch, beside the library call's
-            host = {"host_us": roofline.host_us(lambda: norm.layer_norm_fp32(x, s, b)),
-                    "library_host_us": roofline.host_us(library_layer_norm(x, s, b))}
-            dev_ms = {**dev_ms, **host}
-            line += f"; host us per call: kernel {host['host_us']:.2f}, F.layer_norm {host['library_host_us']:.2f}"
-        log(line)
-        if not err <= tol:
-            raise AssertionError(f"K1 LayerNorm disagrees at M={m} D={d}: {err} > {tol}")
-        if took != [variant]:
-            raise AssertionError(f"K1 at M={m} D={d} offset {offset} took {took}, not {variant}")
-        k1.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
+        k1.append(layer_norm_case(gen, m, d, offset, variant, host=m == 1370 and not offset))
     results["layer_norm"] = k1
 
     # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor, at the ViT
@@ -1214,16 +1269,22 @@ def phase_parity():
             raise AssertionError(f"{key}: bf16-on-card vs fp32-on-CPU relative L2 {rel} > {MODEL_L2_RTOL}")
 
 
-def wall_ms(fn, repeats: int) -> float:
-    """Median host-clock time of ``fn`` in ms, each call ended by a synchronize."""
+def synchronize():
+    """Wait for DEVICE's work (nothing when DEVICE is the CPU, as in a rehearsal)."""
     import torch
 
+    if DEVICE.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def wall_ms(fn, repeats: int) -> float:
+    """Median host-clock time of ``fn`` in ms, each call ended by a synchronize."""
     times = []
     for _ in range(repeats):
-        torch.cuda.synchronize()
+        synchronize()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -1308,20 +1369,21 @@ def phase_batched(card: str, seq):
     return bat, (expect[True], len(BATCHED_TOKENS) * len(BATCHED_SIZES)), timings
 
 
-def phase_serve(card: str, model):
-    """The micro-batcher over the batched-heads model: warmup, then
-    SERVE_REQUESTS requests from SERVE_CLIENTS client threads (half with
-    fov_x=60), every one answered and each answer within tolerance of its
-    image's own batch-1 ``infer``; the mean batch must exceed 1."""
+def phase_serve(card: str, model, per_forward: dict, path: str = "serve", products: int = 0):
+    """The micro-batcher over ``model``: warmup, then SERVE_REQUESTS
+    requests from SERVE_CLIENTS client threads (half with fov_x=60), every
+    one answered and each answer within tolerance of its image's own
+    batch-1 ``infer``; the mean batch must exceed 1; every batch launches
+    ``per_forward`` (on the Hopper variants, recorded under ``path``) and
+    ``products`` int8 products (``quant.LAUNCHES``)."""
     import threading
 
     import numpy as np
     import torch
 
-    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.ops import quant
     from moge_tpu_torch.scripts.serve import VALID_MAPS, InferenceBatcher
 
-    per_forward = expected_launches(get_preset("moge-2-vitl-normal")["config"], batched_heads=True)
     rng = np.random.default_rng(SEED + 5)
     images = [rng.uniform(0, 1, (SERVE_HW, SERVE_HW, 3)).astype(np.float32) for _ in range(SERVE_REQUESTS)]
     fovs = [60.0 if i % 2 else None for i in range(SERVE_REQUESTS)]
@@ -1343,6 +1405,7 @@ def phase_serve(card: str, model):
         warmup_s = time.perf_counter() - t0
         stats0 = dict(batcher.stats)
         reset_counts()
+        products0 = quant.LAUNCHES
         t0 = time.perf_counter()
         clients = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(SERVE_CLIENTS)]
         for t in clients:
@@ -1351,30 +1414,31 @@ def phase_serve(card: str, model):
             t.join(timeout=600)
         wall_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts, products_run = read_counts(), quant.LAUNCHES - products0
     finally:
         batcher.stop()
     if failures or any(a is None for a in answers):
-        raise AssertionError(f"serve: {sum(a is None for a in answers)} requests unanswered: {failures[:3]}")
+        raise AssertionError(f"{path}: {sum(a is None for a in answers)} requests unanswered: {failures[:3]}")
     batches = batcher.stats["batches"] - stats0["batches"]
     mean_batch = (batcher.stats["batched_images"] - stats0["batched_images"]) / batches
     if not mean_batch > 1:
-        raise AssertionError(f"serve: mean batch {mean_batch}, expected more than 1")
+        raise AssertionError(f"{path}: mean batch {mean_batch}, expected more than 1")
     want_counts = {k: v * batches for k, v in per_forward.items()}
-    if counts != want_counts:
-        raise AssertionError(f"serve: launches {counts} over {batches} batches, expected {want_counts}")
-    check_variants("serve", "serve", counts)
+    if counts != want_counts or products_run != products * batches:
+        raise AssertionError(f"{path}: launches {counts} and {products_run} int8 products over {batches} batches, "
+                             f"expected {want_counts} and {products * batches}")
+    check_variants(path, f"{path} serving", counts, runs=batches)
     errs = []
     for i, (image, fov) in enumerate(zip(images, fovs)):
         want = model.infer(torch.from_numpy(image), num_tokens=SERVE_TOKENS, fov_x=fov)
-        errs.append(compare_answers(f"serve request {i}", answers[i], want))
+        errs.append(compare_answers(f"{path} request {i}", answers[i], want))
     p50, p90 = np.percentile(latencies, [50, 90]).tolist()
     stats = {"requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "requests_per_s": SERVE_REQUESTS / wall_s,
              "mean_batch": mean_batch, "batches": batches, "p50_ms": p50, "p90_ms": p90, "warmup_s": warmup_s}
-    log(f"[serve] {SERVE_REQUESTS} requests from {SERVE_CLIENTS} clients at {SERVE_HW}x{SERVE_HW}, "
+    log(f"[{path}] served {SERVE_REQUESTS} requests from {SERVE_CLIENTS} clients at {SERVE_HW}x{SERVE_HW}, "
         f"{SERVE_TOKENS} tokens: {stats['requests_per_s']:.2f} requests/s, {batches} batches, mean batch "
         f"{mean_batch:.2f}, latency p50 {p50:.1f} ms p90 {p90:.1f} ms, warmup {warmup_s:.1f} s ({card}); "
-        f"against batch-1 infer worst {worst(errs)}; launches {counts}")
+        f"against batch-1 infer worst {worst(errs)}; launches {counts}, {products_run} int8 products")
     return (per_forward, batches), stats
 
 
@@ -2875,6 +2939,408 @@ def phase_vis_data():
         raise AssertionError(f"vis_data: {got} vertices, {want} expected, files {files}")
 
 
+def sp_kernel_cases() -> tuple:
+    """K1 and K2 at the sequence-parallel shapes (SP_K2_SHAPES). K1 on each
+    shape's batch x chunk rows at ViT-L's width (``layer_norm_case``). K2
+    with q a (B, chunk, H, 64) view of one rank's qkv and k, v views of the
+    keys and values as ``gather_tokens`` joins them (a view of the
+    (ranks, B, chunk, 2, H, 64) buffer for B = 1, a copy for B > 1), the
+    padding keys masked by ``kv_valid`` (random values, so that a key let
+    through shows); against the plain version within K2_MAX_ABS /
+    K2_LSE_ABS, times beside SDPA on the real keys. Returns the K1 and the
+    K2 cases in phase 3's form."""
+    import torch
+
+    from moge_tpu_torch.ops import attention
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = sorted({batch * -(-n_total // sp) for n_total, sp, batch in SP_K2_SHAPES})
+    k1 = [layer_norm_case(gen, m, 1024, label="K1 sp") for m in rows]
+    heads, k2 = 16, []
+    for n_total, sp, batch in SP_K2_SHAPES:
+        chunk = -(-n_total // sp)
+        qkv = torch.randn(batch, chunk, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+        qkv[:, :, 0] *= 2  # sharper softmax than unit logits
+        kv = torch.randn(sp, batch, chunk, 2, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+        kv = kv.transpose(0, 1).flatten(1, 2)
+        q, k, v = qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1]
+        before = attention.VARIANT_LAUNCHES["wgmma"]
+        got, got_lse = attention.flash_attention_fwd(q, k, v, n_total)
+        label = f"{n_total} tokens over {sp} ranks, batch {batch}"
+        if attention.VARIANT_LAUNCHES["wgmma"] != before + 1:
+            raise AssertionError(f"K2 at the SP shape {label} did not launch the wgmma kernel")
+        want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), n_total, return_lse=True)
+        err = (got.float() - want).abs().max().item()
+        lse_err = (got_lse - want_lse).abs().max().item()
+        ms, plain_ms, lib_ms, dev_ms = attention_times(q, k, v, n_total)
+        bnd = bound(torch.bfloat16, flops=4 * batch * heads * chunk * n_total * 64, mufu=batch * heads * chunk * n_total,
+                    bytes_moved=2 * batch * heads * 64 * 2 * (chunk + n_total) + batch * heads * chunk * 4)
+        log(f"[K2 sp] {label}: Nq {chunk}, Nkv {sp * chunk}, kv_valid {n_total}: "
+            f"max_abs_err {err:.3e} (tol {K2_MAX_ABS}), lse max_abs_err {lse_err:.3e} (tol {K2_LSE_ABS}), "
+            f"{conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'SDPA flash')}; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not err <= K2_MAX_ABS or not lse_err <= K2_LSE_ABS:
+            raise AssertionError(f"K2 at the SP shape {label} disagrees: {err}, lse {lse_err}")
+        k2.append((err, ms, plain_ms, lib_ms, bnd, dev_ms))
+    return k1, k2
+
+
+def serve_through_leader(model, images, hw: int, num_tokens: int) -> tuple:
+    """The server on rank 0 of an SP group: ``create_server`` over a
+    ``Leader`` of ``model`` at ``hw``^2 and ``num_tokens``, ``images``
+    (uint8) posted as PNG over HTTP from SP_CLIENTS threads (every map, as
+    npz), then the leader's stop. Returns the batcher's stats and the
+    answers."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from moge_tpu_torch.parallel.sp import Leader
+    from moge_tpu_torch.scripts.serve import create_server
+    from torch_tiny_config import png_bytes, post_npz
+
+    leader = Leader(model)
+    server, batcher = create_server(leader, "127.0.0.1", 0, hw, hw, num_tokens, max_batch=SP_CLIENTS,
+                                    max_wait_ms=50.0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SP_CLIENTS) as pool:
+            answers = list(pool.map(lambda im: post_npz(url, png_bytes(im)), images))
+        wall_s = time.perf_counter() - t0
+        stats = dict(batcher.stats)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+        leader.stop()
+    stats["requests_per_s"] = len(images) / wall_s
+    return stats, answers
+
+
+def sp_rank_worker() -> None:
+    """One rank of the sequence-parallel run (run as ``python3 -c "import
+    chip_smoke; chip_smoke.sp_rank_worker()" <out dir> <rank> <world>
+    <rendezvous> <backend> <device type>``; the job is <out
+    dir>/job.json): a process group of <backend> (gloo for ranks sharing
+    one card, NCCL for one card per rank) on card <rank> modulo the host's
+    cards, the job's model from SEED with a point map of known perspective
+    (``make_points_perspective``), built with the group as its SP group;
+    ``infer`` at each of the job's token counts with the launch counters
+    set to 0 just before and read just after (every launch's variant
+    checked), SP_REPEATS warm calls timed; rank 0 also holds the same
+    weights without a group (one process), answers the same requests and is
+    timed alone while the others wait; with the job's ``requests``, rank 0
+    serves them through a ``Leader`` while the others ``follow``, launches
+    counted over the batches. Writes rank<r>.json (launches per run, runs,
+    variants, times, errors against one process) and rank<r>_<tokens>.pt
+    (the answers)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    global DEVICE
+    out_dir, rank, world, rendezvous, backend, device_type = sys.argv[1:]
+    out_dir, rank, world = Path(out_dir), int(rank), int(world)
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    from moge_tpu_torch.models.v2 import MoGeModel
+    from moge_tpu_torch.parallel.sp import follow
+    from torch_tiny_config import make_points_perspective
+
+    if device_type == "cuda":
+        DEVICE = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(DEVICE)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        DEVICE = "cpu"
+    job = json.loads((out_dir / "job.json").read_text())
+    dist.init_process_group(backend, init_method=rendezvous, world_size=world, rank=rank)
+    try:
+        model = MoGeModel(job["config"], device=DEVICE, dtype=torch.bfloat16, batched_heads=False,
+                          sp_group=dist.group.WORLD).init_random(seed=SEED)
+        make_points_perspective(model.module)
+        single = None
+        if rank == 0:
+            single = MoGeModel(job["config"], device=DEVICE, dtype=torch.bfloat16, batched_heads=False)
+            single.module.load_state_dict(model.module.state_dict(), strict=True)
+        rng = np.random.default_rng(SEED + 6)
+        record = {"counts": [], "sp_ms": {}, "single_ms": {}, "errs": {}}
+        hw = job["hw"]
+        for tokens in job["tokens"]:
+            image = torch.from_numpy(rng.uniform(0, 1, (hw, hw, 3)).astype(np.float32)).to(DEVICE)
+            reset_counts()
+            out = model.infer(image, num_tokens=tokens)
+            synchronize()
+            counts = read_counts()
+            check_variants("sp", f"sp rank {rank} at {tokens} tokens", counts)
+            record["counts"].append((1, counts))
+            torch.save({k: v.cpu() for k, v in out.items()}, out_dir / f"rank{rank}_{tokens}.pt")
+            record["sp_ms"][tokens] = wall_ms(lambda: model.infer(image, num_tokens=tokens), SP_REPEATS)
+            dist.barrier()
+            if rank == 0:
+                want = single.infer(image, num_tokens=tokens)
+                record["errs"][tokens] = compare_answers(f"sp at {tokens} tokens against one process", out, want)
+                record["single_ms"][tokens] = wall_ms(lambda: single.infer(image, num_tokens=tokens), SP_REPEATS)
+            dist.barrier()
+        if job["requests"]:
+            serve_hw, serve_tokens = job["serve_hw"], job["serve_tokens"]
+            images = [rng.integers(0, 256, (serve_hw, serve_hw, 3), dtype=np.uint8) for _ in range(job["requests"])]
+            reset_counts()
+            if rank == 0:
+                served, answers = serve_through_leader(model, images, serve_hw, serve_tokens)
+                batches = served["batches"]
+            else:
+                batches = follow(model)
+            synchronize()
+            counts = read_counts()
+            check_variants("sp", f"sp serve rank {rank}", counts, runs=batches)
+            record["counts"].append((batches, counts))
+            if rank == 0:
+                errs = [compare_answers(f"sp serve request {i}", answer,
+                                        single.infer(torch.from_numpy(im.astype(np.float32) / 255.0),
+                                                     num_tokens=serve_tokens))
+                        for i, (im, answer) in enumerate(zip(images, answers))]
+                record["serve"] = {**served, "errs": worst(errs)}
+        record["variants"] = VARIANTS_BY_PATH["sp"]
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(record))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sp_ranks(tmp: Path, world: int, backend: str, requests: int) -> list:
+    """``world`` ``sp_rank_worker`` processes over a file rendezvous, in a
+    ``backend`` group, on the moge-2-vitl-normal preset at SP_HW^2 and
+    SP_TOKENS, ``requests`` served (at SERVE_HW^2, SERVE_TOKENS); every
+    rank's record, in rank order, once each rank's launches are the
+    preset's per forward (and per batch)."""
+    from moge_tpu_torch.models.presets import get_preset
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    config = get_preset("moge-2-vitl-normal")["config"]
+    (tmp / "job.json").write_text(json.dumps({"config": config, "hw": SP_HW, "tokens": list(SP_TOKENS),
+                                              "requests": requests, "serve_hw": SERVE_HW,
+                                              "serve_tokens": SERVE_TOKENS}))
+    code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.sp_rank_worker()"
+    device = "cuda" if DEVICE.startswith("cuda") else "cpu"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp), str(r), str(world),
+                               f"file://{tmp / 'rendezvous'}", backend, device], cwd=str(ROOT)) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=SP_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"sp ranks exited with {[p.returncode for p in procs]}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    expect = expected_launches(config)
+    for r, rank in enumerate(ranks):
+        for runs, counts in rank["counts"]:
+            if counts != {k: v * runs for k, v in expect.items()}:
+                raise AssertionError(f"sp rank {r}: launches {counts} over {runs} runs, expected {expect} per run")
+        rank.update(per_run=expect, runs=sum(runs for runs, _ in rank["counts"]))
+    return ranks
+
+
+def compare_ranks(tmp: Path, world: int) -> dict:
+    """Every rank's answers against rank 0's (compare_answers), by token
+    count; they must be bit-identical, since every rank runs the decoder on
+    the same gathered tokens."""
+    import torch
+
+    out = {}
+    for tokens in SP_TOKENS:
+        first = torch.load(tmp / f"rank0_{tokens}.pt")
+        for r in range(1, world):
+            other = torch.load(tmp / f"rank{r}_{tokens}.pt")
+            errs = compare_answers(f"sp rank {r} against rank 0 at {tokens} tokens", other, first)
+            errs["identical"] = all(torch.equal(other[k], first[k]) for k in first)
+            if not errs["identical"]:
+                raise AssertionError(f"sp rank {r} at {tokens} tokens: answers not bit-identical to rank 0's: {errs}")
+            out[f"rank{r}_{tokens}"] = errs
+    return out
+
+
+def phase_sp(card: str):
+    """Sequence parallelism on the one card: K1 and K2 at the SP shapes
+    (``sp_kernel_cases``), then SP_WORLD gloo ranks
+    (``sp_rank_worker``) with the moge-2-vitl-normal preset from SEED: each
+    rank's launches per forward and serving batch, its answers against one
+    process's and against rank 0's, warm latency, the served requests.
+    Returns the K1 and K2 cases, (launches per run, runs over every rank),
+    stats."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    k1_cases, k2_cases = sp_kernel_cases()
+    torch.cuda.empty_cache()
+    root = ROOT / "workspace"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_", dir=root))
+    try:
+        ranks = run_sp_ranks(tmp, SP_WORLD, "gloo", SP_REQUESTS)
+        rank_errs = compare_ranks(tmp, SP_WORLD)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    VARIANTS_BY_PATH["sp"] = ranks[0]["variants"]
+    first = ranks[0]
+    stats = {"world": SP_WORLD, "backend": "gloo", "sp_ms": first["sp_ms"], "single_ms": first["single_ms"],
+             "errs": first["errs"], "rank_errs": rank_errs, "serve": first["serve"],
+             "runs_per_rank": [r["runs"] for r in ranks], "seconds": time.perf_counter() - t0}
+    for tokens in SP_TOKENS:
+        key = str(tokens)
+        log(f"[sp] {SP_WORLD} gloo ranks on one card, {SP_HW}x{SP_HW} at {tokens} tokens: warm median "
+            f"{first['sp_ms'][key]:.2f} ms against one process {first['single_ms'][key]:.2f} ms; answers against "
+            f"one process {first['errs'][key]} ({card})")
+    log(f"[sp] ranks against rank 0: {rank_errs}; served {SP_REQUESTS} requests in {first['serve']['batches']} "
+        f"batches, {first['serve']['requests_per_s']:.2f} requests/s, against batch-1 infer {first['serve']['errs']}; "
+        f"launches per rank and run {first['per_run']}, runs per rank {stats['runs_per_rank']}; "
+        f"phase {stats['seconds']:.1f} s")
+    return (k1_cases, k2_cases), (first["per_run"], sum(stats["runs_per_rank"])), stats
+
+
+def phase_sp_cards(card: str) -> dict:
+    """Sequence parallelism across the host's cards (``--cards``): at 2 and
+    4 ranks (where the host has them), one NCCL rank per card, infer at
+    SP_HW^2 and SP_TOKENS against one process on card 0: warm latency of
+    both, the answers compared."""
+    import shutil
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    stats = {}
+    root = ROOT / "workspace"
+    root.mkdir(exist_ok=True)
+    for world in (w for w in (2, 4) if w <= cards):
+        tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_sp{world}_", dir=root))
+        try:
+            first = run_sp_ranks(tmp, world, "nccl", 0)[0]
+            compare_ranks(tmp, world)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        stats[f"sp{world}"] = {k: first[k] for k in ("sp_ms", "single_ms", "errs")}
+        log(f"[cards] SP over {world} cards (NCCL): warm median ms by tokens {first['sp_ms']} against one card "
+            f"{first['single_ms']} ({card})")
+    return stats
+
+
+def phase_int8(card: str):
+    """W8A8 int8 on the card: the product (``torch._int_mm``) against the
+    CPU's plain version at the ViT-L projections (INT8_ROWS x INT8_GEMMS:
+    int8 operands, scales, int32 accumulators and fp32 outputs identical),
+    with times beside the bf16 product; then moge-2-vitl-normal from SEED in
+    int8 against bf16 at INT8_RUNS (launches per forward, every product on
+    ``_int_mm``, warm medians of both, the last layer's tokens and the
+    depth (no mask) within INT8_DRIFT, tests/test_quant.py's bounds); then
+    SERVE_REQUESTS through the micro-batcher over the int8 model (with a
+    point map of known perspective), each answer against its image's
+    batch-1 int8 ``infer`` (``phase_serve``). Returns (launches per run,
+    runs), stats."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.dinov2 import VIT_ARCHS
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import MoGeModel
+    from moge_tpu_torch.ops import quant
+    from moge_tpu_torch.ops.resize import resize_2d
+    from torch_tiny_config import make_points_perspective
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    stats = {"gemms": {}}
+    for m in INT8_ROWS:
+        for k, n in INT8_GEMMS:
+            x = (torch.randn(m, k, generator=gen, device=dev) * 2).to(torch.bfloat16)
+            w = torch.randn(n, k, generator=gen, device=dev) * 0.02
+            b = torch.randn(n, generator=gen, device=dev) * 0.02
+            before = quant.LAUNCHES
+            card_side = (*quant.quantize(x), *quant.quantize(w))
+            card_side += (quant.int8_product(card_side[0], card_side[2]),
+                          quant.quant_matmul(x, w, b, card_side[2:4]))
+            if quant.LAUNCHES != before + 2:
+                raise AssertionError(f"int8 product at ({m}, {k}) x ({k}, {n}) did not go through _int_mm")
+            xc, wc, bc = x.cpu(), w.cpu(), b.cpu()
+            cpu_side = (*quant.quantize(xc), *quant.quantize(wc))
+            cpu_side += (quant.int8_product(cpu_side[0], cpu_side[2]), quant.quant_matmul(xc, wc, bc, cpu_side[2:4]))
+            names = ("x_q", "x_scale", "w_q", "w_scale", "acc", "out")
+            differ = [nm for nm, a, c in zip(names, card_side, cpu_side) if not torch.equal(a.cpu(), c)]
+            if differ:
+                raise AssertionError(f"int8 at ({m}, {k}) x ({k}, {n}): card and CPU differ in {differ}")
+            x_q, _, w_q, w_scale = card_side[:4]
+            w16 = w.to(torch.bfloat16)
+            times = {"int_mm_ms": cuda_ms(lambda: quant.int8_product(x_q, w_q)),
+                     "quant_matmul_ms": cuda_ms(lambda: quant.quant_matmul(x, w, b, (w_q, w_scale))),
+                     "bf16_linear_ms": cuda_ms(lambda: torch.nn.functional.linear(x, w16))}
+            bnd = bound(int8_ops=2 * m * k * n, bytes_moved=m * k + k * n + 4 * m * n)
+            stats["gemms"][f"{m}x{k}x{n}"] = {**times, "int_mm_bound_ms": bnd[0], "bound_by": bnd[1]}
+            log(f"[int8] ({m}, {k}) x ({k}, {n}): card = CPU in {names}; ms: _int_mm {times['int_mm_ms']:.4f} "
+                f"(bound {bnd[0]:.4f}, {bnd[1]}), quant_matmul {times['quant_matmul_ms']:.4f}, bf16 F.linear "
+                f"{times['bf16_linear_ms']:.4f} ({card})")
+            del x, w, b, card_side, cpu_side, xc, wc, bc, x_q, w_q, w16
+    torch.cuda.empty_cache()
+
+    config = get_preset("moge-2-vitl-normal")["config"]
+    expect = expected_launches(config)
+    per_forward_int8 = 4 * VIT_ARCHS[config["encoder"]["backbone"]].depth  # qkv, proj, fc1, fc2 per block
+    bf16 = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16, batched_heads=False).init_random(seed=SEED)
+    int8 = MoGeModel(config, device=DEVICE, dtype=torch.bfloat16, batched_heads=False, use_int8=True)
+    int8.module.load_state_dict(bf16.module.state_dict(), strict=True)
+    rng = np.random.default_rng(SEED + 8)
+    runs, stats["infer"] = 0, {}
+    for tokens, batch in INT8_RUNS:
+        label = f"{SERVE_HW}x{SERVE_HW} num_tokens={tokens} batch={batch}"
+        images = torch.from_numpy(rng.uniform(0, 1, (batch, SERVE_HW, SERVE_HW, 3)).astype(np.float32)).to(DEVICE)
+        reset_counts()
+        before = quant.LAUNCHES
+        out = int8.infer(images, num_tokens=tokens, apply_mask=False)
+        synchronize()
+        counts, products = read_counts(), quant.LAUNCHES - before
+        if counts != expect or products != per_forward_int8:
+            raise AssertionError(f"int8 {label}: launches {counts} and {products} int8 products, expected "
+                                 f"{expect} and {per_forward_int8}")
+        check_variants("int8", f"int8 {label}", counts)
+        runs += 1
+        ref = bf16.infer(images, num_tokens=tokens, apply_mask=False)
+        d_ref, d_q = ref["depth"].float().cpu().numpy(), out["depth"].float().cpu().numpy()
+        fin = np.isfinite(d_ref) & np.isfinite(d_q)
+        depth_drift = float(np.median(np.abs(d_q[fin] - d_ref[fin]) / np.maximum(d_ref[fin], 1e-3)))
+        base_h = base_w = round(tokens ** 0.5)
+        image_14 = resize_2d(images, (base_h * 14, base_w * 14), mode="bilinear", antialias=True)
+        with torch.inference_mode():
+            x = (image_14 - bf16.module.encoder.image_mean.view(3)) / bf16.module.encoder.image_std.view(3)
+            last = [bf16.module.encoder.take_layers[-1]]
+            (p_ref, _), = bf16.module.encoder.backbone(x, last, torch.bfloat16)
+            (p_q, _), = int8.module.encoder.backbone(x, last, torch.bfloat16)
+        token_drift = ((p_q.float() - p_ref.float()).norm() / p_ref.float().norm()).item()
+        ms = {"int8_ms": wall_ms(lambda: int8.infer(images, num_tokens=tokens), INT8_REPEATS),
+              "bf16_ms": wall_ms(lambda: bf16.infer(images, num_tokens=tokens), INT8_REPEATS)}
+        stats["infer"][label] = {**ms, "token_drift": token_drift, "depth_drift": depth_drift,
+                                 "finite": float(fin.mean())}
+        log(f"[int8] ViT-L {label}: warm median int8 {ms['int8_ms']:.2f} ms, bf16 {ms['bf16_ms']:.2f} ms; drift "
+            f"against bf16: last-layer tokens {token_drift:.4f}, depth median {depth_drift:.4f} "
+            f"(bound {INT8_DRIFT}), finite {fin.mean():.3f}; launches {counts}, {products} _int_mm ({card})")
+        if not (token_drift < INT8_DRIFT and depth_drift < INT8_DRIFT and fin.mean() > 0.9):
+            raise AssertionError(f"int8 {label}: drift against bf16 {token_drift} (tokens), {depth_drift} (depth), "
+                                 f"finite {fin.mean()}: beyond tests/test_quant.py's bounds")
+        del images, out, ref, image_14, x, p_ref, p_q
+    del bf16
+    torch.cuda.empty_cache()
+
+    make_points_perspective(int8.module)
+    (_, batches), stats["serve"] = phase_serve(card, int8, expect, path="int8", products=per_forward_int8)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[int8] phase {stats['seconds']:.1f} s")
+    return (expect, runs + batches), stats
+
+
 KERNELS = [
     ("layer_norm", "moge_tpu_torch/csrc/layernorm.cu", "moge_tpu/ops/norm.py:40"),
     ("flash_attention", "moge_tpu_torch/csrc/flash_attn.cu", "moge_tpu/ops/attention.py:57"),
@@ -2920,7 +3386,7 @@ def main(argv=None) -> int:
         f"{roofline.SMS * roofline.MUFU_PER_SM * CLOCK_HZ / 1e12:.3f} T/s")
     phase_build()
     if argv == ["--cards"]:
-        print(json.dumps({"cards": phase_cards(card)}))
+        print(json.dumps({"cards": phase_cards(card), "sp_cards": phase_sp_cards(card)}))
         print(card)
         return 0
     kernel_results = {**phase_kernels(), **phase_kernels_train()}
@@ -2933,8 +3399,13 @@ def main(argv=None) -> int:
     phase_parity()
     bat, launches["batched_heads"], batched_ms = phase_batched(card, seq)
     del seq
-    launches["serve"], serve_stats = phase_serve(card, bat)
+    launches["serve"], serve_stats = phase_serve(card, bat, launches["batched_heads"][0])
     del bat
+    torch.cuda.empty_cache()
+    (sp_k1, sp_k2), launches["sp"], sp_stats = phase_sp(card)
+    kernel_results["layer_norm"] += sp_k1
+    kernel_results["flash_attention"] += sp_k2
+    launches["int8"], int8_stats = phase_int8(card)
     torch.cuda.empty_cache()
     launches["moge1_infer"], moge1_ms = phase_moge1(card)
     torch.cuda.empty_cache()
@@ -2967,7 +3438,7 @@ def main(argv=None) -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **dict(*device),
                         **variants})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
-                      "serve": serve_stats, "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
+                      "serve": serve_stats, "sp": sp_stats, "int8": int8_stats, "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
                       "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
                       "train_v1": train_v1_stats, "parallel": parallel_stats, "giant": giant_stats,
                       "probes": probe_tables}))

@@ -10,6 +10,16 @@ names are the torch DINOv2 state-dict names, so a reference checkpoint (or
 Activations are (B, N, D) tokens; images NHWC. LayerNorm runs kernel K1 and
 attention kernel K2 (backward: K2b-dq, K2b-dkv) on the card. GELU is the
 tanh approximation under bf16 and exact erf in fp32, as in the JAX package.
+
+Two inference-only compute paths, as in the JAX package: ``use_int8`` makes
+the six block projections (qkv, proj, fc1, fc2, w12, w3) W8A8 int8
+(``ops/quant.py``; same parameters), and ``forward(..., sp_group=g)`` splits
+the token axis over the ranks of a process group (``parallel/sp.py``): the
+patch embed and pos-embed run replicated, each rank keeps one contiguous
+chunk of the tokens (zero-padded at the global tail), attention gathers K
+and V over the group and masks the padding keys (K2 at Nq = chunk, Nkv =
+ranks x chunk, ``kv_valid`` = the real tokens), and the final norm's
+outputs are gathered.
 """
 
 from __future__ import annotations
@@ -21,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention_qkv
+from ..ops.attention import flash_attention, flash_attention_qkv
 from ..ops.norm import layer_norm_fp32
+from ..ops.quant import QuantLinear
 from ..ops.resize import resize_2d
+from ..parallel.sp import gather_tokens, shard_tokens
 from ._weights import cast, derived
 
 __all__ = ["ViTConfig", "VIT_ARCHS", "DinoVisionTransformer"]
@@ -91,27 +103,39 @@ class LayerScale(nn.Module):
         return x * cast(self, "gamma", x.dtype)
 
 
+def _linear(use_int8: bool) -> type:
+    """The block projections' class: ``QuantLinear`` (W8A8 int8) or ``Linear``."""
+    return QuantLinear if use_int8 else Linear
+
+
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, use_int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Linear(dim, dim * 3)
-        self.proj = Linear(dim, dim)
+        self.qkv = _linear(use_int8)(dim, dim * 3)
+        self.proj = _linear(use_int8)(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """``sp``: (group, real tokens) when ``x`` is this rank's chunk of a
+        sequence-parallel forward."""
         b, n, dim = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.num_heads, dim // self.num_heads)
-        # the kernels read q/k/v as strided (B, N, H, 64) views of qkv and
-        # write its gradient the same way
-        out = flash_attention_qkv(qkv)
+        if sp is None:
+            # the kernels read q/k/v as strided (B, N, H, 64) views of qkv and
+            # write its gradient the same way
+            out = flash_attention_qkv(qkv)
+        else:
+            group, n_total = sp
+            kv = gather_tokens(qkv[:, :, 1:], group)  # every rank's K and V, one collective
+            out = flash_attention(qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1], kv_valid=n_total)
         return self.proj(out.reshape(b, n, dim))
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, use_int8: bool = False):
         super().__init__()
-        self.fc1 = Linear(dim, hidden)
-        self.fc2 = Linear(hidden, dim)
+        self.fc1 = _linear(use_int8)(dim, hidden)
+        self.fc2 = _linear(use_int8)(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
@@ -123,10 +147,10 @@ class SwiGLU(nn.Module):
     """SwiGLUFFNFused (the giant arch): one fused linear to 2 x hidden, split
     into x1 and x2, then ``w3(silu(x1) * x2)``."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, use_int8: bool = False):
         super().__init__()
-        self.w12 = Linear(dim, 2 * hidden)
-        self.w3 = Linear(hidden, dim)
+        self.w12 = _linear(use_int8)(dim, 2 * hidden)
+        self.w3 = _linear(use_int8)(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = self.w12(x).chunk(2, dim=-1)
@@ -134,19 +158,19 @@ class SwiGLU(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_hidden: int, ffn: str = "mlp"):
+    def __init__(self, dim: int, num_heads: int, mlp_hidden: int, ffn: str = "mlp", use_int8: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, use_int8)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim)
         if ffn not in ("mlp", "swiglu"):
             raise ValueError(f"unknown ffn {ffn!r}")
-        self.mlp = SwiGLU(dim, mlp_hidden) if ffn == "swiglu" else Mlp(dim, mlp_hidden)
+        self.mlp = (SwiGLU if ffn == "swiglu" else Mlp)(dim, mlp_hidden, use_int8)
         self.ls2 = LayerScale(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x), sp))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
@@ -172,7 +196,7 @@ class PatchEmbed(nn.Module):
 
 
 class DinoVisionTransformer(nn.Module):
-    def __init__(self, config: ViTConfig):
+    def __init__(self, config: ViTConfig, use_int8: bool = False):
         super().__init__()
         self.config = config
         dim = config.embed_dim
@@ -181,7 +205,7 @@ class DinoVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, config.pos_grid ** 2 + 1, dim))
         # unused by MoGe (so not trained); kept for the checkpoint layout
         self.mask_token = nn.Parameter(torch.zeros(1, dim), requires_grad=False)
-        self.blocks = nn.ModuleList(Block(dim, config.num_heads, config.mlp_hidden, config.ffn)
+        self.blocks = nn.ModuleList(Block(dim, config.num_heads, config.mlp_hidden, config.ffn, use_int8)
                                     for _ in range(config.depth))
         self.norm = LayerNorm(dim)
 
@@ -205,11 +229,17 @@ class DinoVisionTransformer(nn.Module):
         # one cached grid per dtype: a server sees many grids
         return derived(self, ("pos_embed", dtype), interp, self.pos_embed, tag=(h0, w0))
 
-    def forward(self, image: torch.Tensor, take_layers: Sequence[int],
-                dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def forward(self, image: torch.Tensor, take_layers: Sequence[int], dtype: torch.dtype,
+                sp_group=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """``image``: (B, 14*h0, 14*w0, 3) ImageNet-normalized NHWC fp32.
         Returns [(patch tokens (B, h0*w0, D), cls token (B, D)), ...] for the
-        blocks in ``take_layers``, each through the shared final norm."""
+        blocks in ``take_layers``, each through the shared final norm.
+        ``sp_group``: a process group whose ranks all call with the same
+        inputs, to run sequence-parallel (inference only: raises with grad
+        mode on); every rank returns the whole result."""
+        if sp_group is not None and torch.is_grad_enabled():
+            raise RuntimeError("sequence parallelism is inference-only: run the forward under "
+                               "torch.inference_mode() or torch.no_grad()")
         cfg = self.config
         b, hpix, wpix, _ = image.shape
         h0, w0 = hpix // cfg.patch_size, wpix // cfg.patch_size
@@ -217,15 +247,21 @@ class DinoVisionTransformer(nn.Module):
         x = self.patch_embed(image.to(dtype))
         cls = cast(self, "cls_token", dtype).expand(b, 1, dim)
         x = torch.cat([cls, x], dim=1) + self.interpolate_pos_encoding(h0, w0, dtype)
+        n_total = x.shape[1]
+        sp = None
+        if sp_group is not None:
+            x, sp = shard_tokens(x, sp_group), (sp_group, n_total)
 
         take = set(int(i) for i in take_layers)
         outputs = []
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = block(x, sp)
             if i in take:
                 outputs.append(x)
         results = []
         for out in outputs:
-            out = self.norm(out)
+            out = self.norm(out)  # per token: on the chunk under sequence parallelism
+            if sp is not None:
+                out = gather_tokens(out, sp_group)[:, :n_total]
             results.append((out[:, 1:], out[:, 0]))
         return results

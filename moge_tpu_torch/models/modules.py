@@ -386,12 +386,16 @@ class ConvStack(nn.Module):
 
 class DINOv2Encoder(nn.Module):
     """ViT encoder wrapper: ImageNet normalisation, intermediate layers,
-    1x1 projections summed."""
+    1x1 projections summed. ``sp_group`` runs the ViT sequence-parallel over
+    a process group, ``use_int8`` its block projections in W8A8 int8 (both
+    inference only; ``models/dinov2.py``)."""
 
-    def __init__(self, backbone: str, intermediate_layers: Union[int, Sequence[int]], dim_out: int):
+    def __init__(self, backbone: str, intermediate_layers: Union[int, Sequence[int]], dim_out: int,
+                 sp_group=None, use_int8: bool = False):
         super().__init__()
         cfg = VIT_ARCHS[backbone]
-        self.backbone = DinoVisionTransformer(cfg)
+        self.backbone = DinoVisionTransformer(cfg, use_int8)
+        self.sp_group = sp_group
         if isinstance(intermediate_layers, int):
             self.take_layers = tuple(range(cfg.depth - intermediate_layers, cfg.depth))
         else:
@@ -404,7 +408,7 @@ class DINOv2Encoder(nn.Module):
         """``image_14``: (B, 14*rows, 14*cols, 3) RGB in [0, 1], fp32.
         Returns features (B, rows, cols, dim_out) and the cls token (B, D)."""
         image_14 = (image_14.float() - self.image_mean.view(3)) / self.image_std.view(3)
-        features = self.backbone(image_14, self.take_layers, dtype)
+        features = self.backbone(image_14, self.take_layers, dtype, self.sp_group)
         b = image_14.shape[0]
         x = None
         for proj, (patches, _cls) in zip(self.output_projections, features):

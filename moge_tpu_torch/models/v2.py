@@ -10,6 +10,12 @@ family, ``decode`` runs the output heads as one grouped pass
 keyword arguments and returns its keys: points, depth, intrinsics, mask,
 normal. Compute is bf16 by default (``use_fp16=True``) or fp32; the
 epilogue and the camera recovery run in fp32.
+
+Two serving-mode options of the encoder, as in the JAX package:
+``sp_group`` (a process group; every rank calls ``infer`` with the same
+inputs, the ViT runs sequence-parallel, the rest replicated, every rank
+returns the whole result; ``parallel/sp.py``) and ``use_int8`` (W8A8 int8
+block projections; ``ops/quant.py``). Both are inference only.
 """
 
 from __future__ import annotations
@@ -60,11 +66,11 @@ class MoGeV2(nn.Module):
                  points_head: Optional[Dict[str, Any]] = None, mask_head: Optional[Dict[str, Any]] = None,
                  normal_head: Optional[Dict[str, Any]] = None, scale_head: Optional[Dict[str, Any]] = None,
                  remap_output: str = "linear", num_tokens_range=(1200, 3600),
-                 batched_heads: Optional[bool] = None):
+                 batched_heads: Optional[bool] = None, sp_group=None, use_int8: bool = False):
         super().__init__()
         self.remap_output = remap_output
         self.num_tokens_range = list(num_tokens_range)
-        self.encoder = DINOv2Encoder(**encoder)
+        self.encoder = DINOv2Encoder(**encoder, sp_group=sp_group, use_int8=use_int8)
         self.neck = ConvStack(**neck)
         head_cfgs = []
         for name, cfg in (("points_head", points_head), ("normal_head", normal_head), ("mask_head", mask_head)):
@@ -196,23 +202,26 @@ class MoGeModel:
                     "scale_head", "remap_output", "num_tokens_range")
 
     def __init__(self, config: Dict[str, Any], device: Union[str, torch.device] = "cuda",
-                 dtype: torch.dtype = torch.bfloat16, batched_heads: Optional[bool] = None):
+                 dtype: torch.dtype = torch.bfloat16, batched_heads: Optional[bool] = None,
+                 sp_group=None, use_int8: bool = False):
         self.config = {k: v for k, v in config.items() if k in self._CONFIG_KEYS}
         self.device = torch.device(device)
         self.dtype = dtype
+        self.sp_group = sp_group
         with self.device:  # parameters are allocated on the device (uninitialised until loaded)
-            self.module = MoGeV2(**self.config, batched_heads=batched_heads).eval()
+            self.module = MoGeV2(**self.config, batched_heads=batched_heads, sp_group=sp_group,
+                                 use_int8=use_int8).eval()
 
     @classmethod
     def from_pretrained(cls, path, device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.bfloat16,
-                        model_kwargs: Optional[Dict[str, Any]] = None) -> "MoGeModel":
+                        model_kwargs: Optional[Dict[str, Any]] = None, use_int8: bool = False) -> "MoGeModel":
         """Load a reference-format checkpoint ``{'model_config', 'model'}``."""
         from .io import load_checkpoint
 
         config, state_dict = load_checkpoint(path, version="v2")
         if model_kwargs:
             config.update(model_kwargs)
-        model = cls(config, device, dtype)
+        model = cls(config, device, dtype, use_int8=use_int8)
         model.module.load_state_dict(state_dict, strict=True)
         return model
 

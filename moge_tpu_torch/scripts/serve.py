@@ -361,20 +361,21 @@ def command():
     @click.option("--max_wait_ms", type=float, default=5.0, show_default=True,
                   help="Micro-batching window after the first queued request.")
     @click.option("--fp16/--no_fp16", "use_fp16", default=True, help="bf16 compute.")
-    @click.option("--int8", "use_int8", is_flag=True, help="W8A8 int8 encoder matmuls (not ported).")
+    @click.option("--int8", "use_int8", is_flag=True,
+                  help="W8A8 int8 encoder matmuls (v2; about 1e-2 output drift against bf16, see ops/quant.py).")
     @click.option("--warmup/--no_warmup", default=True, help="Drive every batch bucket before accepting traffic.")
     def serve(pretrained_path, model_version, device_name, host, port, resolution, num_tokens, max_batch,
               max_wait_ms, use_fp16, use_int8, warmup):
         from ..models import import_model_class_by_version
 
-        if use_int8:
-            raise click.UsageError("--int8 needs the W8A8 int8 matmuls of moge_tpu/ops/quant.py, which the "
-                                   "PyTorch port does not have yet")
+        if use_int8 and model_version != "v2":
+            raise click.UsageError("--int8 is only supported for v2 models")
         device = torch.device(device_name)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise click.UsageError(f"--device {device_name}: no CUDA device (the server does not fall back to the CPU)")
+        int8 = {"use_int8": True} if use_int8 else {}
         model = import_model_class_by_version(model_version).from_pretrained(
-            pretrained_path, device=device, dtype=torch.bfloat16 if use_fp16 else torch.float32)
+            pretrained_path, device=device, dtype=torch.bfloat16 if use_fp16 else torch.float32, **int8)
         server, batcher = create_server(model, host, port, resolution, resolution, num_tokens,
                                         max_batch=max_batch, max_wait_ms=max_wait_ms, use_fp16=use_fp16)
         if warmup:

@@ -2,10 +2,11 @@
 it, and the timing and labelling helpers the probe tools share.
 
 Peaks (NVIDIA's data sheet, H100 SXM, dense, at the full 700 W): 3.35 TB/s
-of HBM, 989 TFLOP/s of bf16 on the tensor cores. The rates outside the
-tensor cores scale with the SM clock: 132 SMs x 128 FP32 lanes execute one
-FP32 instruction per lane per clock (an FFMA counts 2 flops: 67 TFLOP/s at
-1.98 GHz), and 16 MUFU lanes per SM evaluate one ``ex2`` per clock.
+of HBM, 989 TFLOP/s of bf16 and 1979 TOP/s of int8 on the tensor cores.
+The rates outside the tensor cores scale with the SM clock: 132 SMs x 128
+FP32 lanes execute one FP32 instruction per lane per clock (an FFMA counts
+2 flops: 67 TFLOP/s at 1.98 GHz), and 16 MUFU lanes per SM evaluate one
+``ex2`` per clock.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 SMS = 132
 FP32_LANES_PER_SM = 128
 MUFU_PER_SM = 16
@@ -50,12 +52,13 @@ def device_label(device: torch.device) -> str:
 
 
 def bound_ms(clock_hz: float, bytes_moved: float = 0.0, tensor_flops: float = 0.0, fp32_instr: float = 0.0,
-             mufu: float = 0.0) -> Tuple[float, str]:
+             mufu: float = 0.0, int8_ops: float = 0.0) -> Tuple[float, str]:
     """The least time (ms) of a piece of work and what sets it: the bytes it
     must move over the HBM rate, or its operations over the peak rate of
     their type (the larger of the operation times)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(tensor_flops / BF16_TENSOR_FLOPS, fp32_instr / (SMS * FP32_LANES_PER_SM * clock_hz),
+    t_ops = max(tensor_flops / BF16_TENSOR_FLOPS, int8_ops / INT8_TENSOR_OPS,
+                fp32_instr / (SMS * FP32_LANES_PER_SM * clock_hz),
                 mufu / (SMS * MUFU_PER_SM * clock_hz))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 

@@ -163,7 +163,10 @@ def image_color_augmentation(
         if rng.uniform() < 0.5:
             dof_strength = int(rng.integers(12))
             disp = 1 / depth
-            finite_mask = np.isfinite(depth)
+            # a depth of 0 has an infinite disparity: the JAX package's mask
+            # (finite depth) takes it into the range and raises OverflowError
+            # in the uniform draw; elsewhere the two masks are equal
+            finite_mask = np.isfinite(depth) & np.isfinite(disp)
             if finite_mask.any():
                 disp_min, disp_max = disp[finite_mask].min(), disp[finite_mask].max()
                 disp = cv2.inpaint(

@@ -108,3 +108,17 @@ def test_depth_of_field_equals_jax(strength):
     want = jgeo.depth_of_field(_image(), disp, focus, strength)
     assert _equal(got, want)
     assert _equal(tgeo.disk_kernel(strength), jgeo.disk_kernel(strength))
+
+
+def test_depth_of_field_takes_a_zero_depth():
+    """A warped depth of 0 has an infinite disparity: the JAX package's
+    augmentation takes it into the disparity range and raises OverflowError
+    in its focus draw (a documented divergence); the port leaves it out of
+    the range and returns an image."""
+    image, depth = _image(), _depth()
+    depth[40:44, 10:20] = 0.0
+    seed = 3  # its first draw is below 0.5: the dof branch runs
+    with pytest.raises(OverflowError):
+        jaug.image_color_augmentation(image, ["dof"], rng=np.random.default_rng(seed), depth=depth)
+    got = taug.image_color_augmentation(image, ["dof"], rng=np.random.default_rng(seed), depth=depth)
+    assert got.dtype == np.uint8 and got.shape == image.shape and not np.array_equal(got, image)

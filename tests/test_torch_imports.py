@@ -82,7 +82,7 @@ def test_the_guards_cover_the_parallel_modules():
     """The parallel layer (``moge_tpu_torch/parallel/``) is among the
     sources both guards parse, and imports neither JAX nor the JAX package."""
     parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
-    assert parallel == {"__init__.py", "distributed.py", "mesh.py"}
+    assert parallel == {"__init__.py", "distributed.py", "mesh.py", "sp.py"}
     for path in SOURCES:
         if path.parent.name == "parallel":
             assert not {root for _, root in _imported_roots(path)} & FORBIDDEN, path
@@ -94,3 +94,10 @@ def test_the_train_command_defaults_to_the_card():
 
     device = next(p for p in train.command().params if p.name == "device_name")
     assert device.default == "cuda"
+
+
+def test_the_guards_cover_the_serving_mode_modules():
+    """Sequence parallelism (``parallel/sp.py``) and the W8A8 int8 path
+    (``ops/quant.py``) are among the sources both guards parse."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"moge_tpu_torch/parallel/sp.py", "moge_tpu_torch/ops/quant.py"} <= names

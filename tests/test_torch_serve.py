@@ -3,7 +3,7 @@ with the tiny MoGe-2 (batched heads): the batcher answers concurrent
 requests each as its own batch-1 ``infer`` would, pads to power-of-two
 buckets, groups by fov_x and hands an error to every waiting request; one
 HTTP round-trip whose JSON body has the keys (and values) of the JAX
-server's response encoder; ``/healthz`` stats; ``--int8`` refused; the
+server's response encoder; ``/healthz`` stats; ``--int8`` refused for v1; the
 serving modules import with jax, cv2 and click blocked."""
 
 import io
@@ -227,8 +227,8 @@ def test_http_npz_healthz_and_bad_requests(server_url):
 def test_serve_refuses_int8_and_a_missing_card():
     from click.testing import CliRunner
 
-    result = CliRunner().invoke(serve.command(), ["--int8", "--pretrained", "model.pt"])
-    assert result.exit_code == 2 and "quant.py" in result.output
+    result = CliRunner().invoke(serve.command(), ["--int8", "--version", "v1", "--pretrained", "model.pt"])
+    assert result.exit_code == 2 and "--int8 is only supported for v2 models" in result.output
     if not torch.cuda.is_available():
         result = CliRunner().invoke(serve.command(), ["--pretrained", "model.pt", "--device", "cuda"])
         assert result.exit_code == 2 and "fall back" in result.output

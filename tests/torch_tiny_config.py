@@ -3,8 +3,9 @@ level, so GPU hosts without JAX can use it): the full structure (encoder,
 neck, three heads, scale MLP) on the ``dinov2_vitt14`` arch, as in
 ``__graft_entry__.dryrun_multichip``; the weight bridge from the JAX
 package's parameter trees to the port's state dicts; a smooth distance
-field seen by the panorama's views; and a synthetic eval benchmark and
-synthetic training datasets written with the port's codecs."""
+field seen by the panorama's views; a synthetic eval benchmark and
+synthetic training datasets written with the port's codecs; and the rank
+of the sequence-parallel tests (``sp_rank``)."""
 
 _HEAD = {
     "dim_in": [64, 32, 16, 16, 16], "dim_res_blocks": [64, 32, 16, 16, 16], "num_res_blocks": [0, 1, 1, 1, 0],
@@ -320,3 +321,98 @@ def train_rank_main():
     train.COMPUTE_DTYPE = getattr(torch, dtype)
     result, whole = run_train_rank(train_args, int(rank), int(world), rendezvous)
     torch.save({"state": whole, "steps": result["steps"]}, out)
+
+
+def png_bytes(image):
+    """A uint8 (H, W, 3) RGB image as PNG bytes (what an HTTP client sends the server)."""
+    import cv2
+
+    ok, data = cv2.imencode(".png", cv2.cvtColor(image, cv2.COLOR_RGB2BGR))
+    assert ok
+    return data.tobytes()
+
+
+def post_npz(url, body, maps="depth,normal,mask,points,intrinsics"):
+    """POST an image to a server's /v1/infer for ``maps`` as npz; the answer's arrays."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    req = urllib.request.Request(f"{url}/v1/infer?maps={maps}&format=npz", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return dict(np.load(io.BytesIO(r.read())))
+
+
+def sp_rank(rank, world, job):
+    """One rank of a sequence-parallel run on the CPU (gloo, the default
+    group as the SP group), for ``distributed.spawn``. ``job``: 'vit' (ViT
+    config kwargs, state dict, image, take layers), 'model' (MoGe-2 config,
+    state dict, images, infer kwargs), 'serve' (None, or the uint8 images
+    to send a server of the SP model: rank 0 first makes a ``Leader`` call
+    with an unknown argument, then runs ``create_server`` over the
+    ``Leader`` and posts them from two threads, the others ``follow``),
+    'out' (a directory). Writes ``rank<r>.pt``: the SP encode, whether a
+    training forward with the group raised (ViT and MoGe-2), the SP
+    ``infer`` outputs, and whether the failing call raised its TypeError
+    and the served answers (rank 0) or the calls joined."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from moge_tpu_torch.models.dinov2 import DinoVisionTransformer, ViTConfig
+    from moge_tpu_torch.models.v2 import MoGeModel
+    from moge_tpu_torch.parallel.sp import Leader, follow, sequence_parallel_encode
+    from moge_tpu_torch.scripts.serve import create_server
+
+    torch.set_num_threads(1)
+    group = dist.group.WORLD
+    record = {}
+    vit_kwargs, vit_sd, vit_image, take = job["vit"]
+    vit = DinoVisionTransformer(ViTConfig(**vit_kwargs))
+    vit.load_state_dict(vit_sd, strict=True)
+    image = torch.from_numpy(vit_image)
+    record["encode"] = [(p.numpy(), c.numpy()) for p, c in sequence_parallel_encode(vit, image, take, group)]
+
+    config, sd, images, kwargs = job["model"]
+    model = MoGeModel(config, "cpu", torch.float32, sp_group=group)
+    model.module.load_state_dict(sd, strict=True)
+    raised = {}
+    for name, call in (("vit", lambda: vit(image, take, torch.float32, sp_group=group)),
+                       ("moge2", lambda: model.module.forward(torch.from_numpy(images), kwargs["num_tokens"]))):
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "inference-only" in str(e)
+    record["training_raised"] = raised
+    record["infer"] = {k: v.numpy() for k, v in model.infer(torch.from_numpy(images), **kwargs).items()}
+
+    if job["serve"] is not None:
+        hw, num_tokens, served = job["serve"]
+        if rank == 0:
+            leader = Leader(model)
+            try:  # a call that fails on every rank, which the follower must survive
+                leader.infer(served[0], num_tokens=num_tokens, no_such_argument=True)
+            except TypeError as e:
+                record["failed"] = "no_such_argument" in str(e)
+            server, batcher = create_server(leader, "127.0.0.1", 0, hw, hw, num_tokens, max_batch=2,
+                                            max_wait_ms=200.0, use_fp16=False)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                with ThreadPoolExecutor(2) as pool:
+                    record["served"] = list(pool.map(lambda im: post_npz(url, png_bytes(im)), served))
+                record["stats"] = dict(batcher.stats)
+            finally:
+                server.shutdown()
+                server.server_close()
+                batcher.stop()
+                leader.stop()
+        else:
+            record["joined"] = follow(model)
+    torch.save(record, Path(job["out"]) / f"rank{rank}.pt")
