@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, serving (sequence-parallel and int8 too), panorama, eval, training (step, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, export, serving (sequence-parallel and int8 too), panorama, eval, training (step, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -47,6 +47,16 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    a seed, bf16, four ``infer`` requests, launch counters per forward;
 5. inference parity: ``moge-2-vits-normal`` decode, bf16 with the kernels on
    the card against fp32 with the plain versions on the CPU;
+5b. export: the same ViT-L (a point map of known perspective in its points
+   head) exported with ``models/export.py`` as the whole ``infer`` program,
+   camera solve inside, bf16, 518^2 at 1369 tokens, batch 1, saved to bytes
+   and loaded back: its outputs against live ``infer`` (points, depth and
+   normal within 1e-3 relative L2, intrinsics within 1e-4, masks agreeing
+   on 99.9% of the pixels; the largest elementwise difference and bit
+   identity logged), launch counters per run (the kernels reached through
+   the ``torch.ops.moge`` ops); then the raw bf16 forward's artifact against
+   ``MoGeV2.forward``; export seconds, artifact MB, the artifact's warm
+   latency against live ``infer`` in alternating turns;
 6. batched heads: the same ViT-L with ``batched_heads=True`` (the three
    heads as one grouped pass on K3-grouped) at 518x518, 1369 and 3600
    tokens, batch 1 and 8, against the sequential heads, launch counters per
@@ -133,12 +143,13 @@ pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
 launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
 K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``).
 
-Prints a JSON line with the kernels' numbers, the inference, batched,
+Prints a JSON line with the kernels' numbers, the inference, export, batched,
 serving, panorama, eval and training numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is its count
 summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads``, ``moge1_infer`` and ``giant``, one
+artifact run for ``export``, one
 batch for ``serve``, one 12-view panorama for ``panorama``, one sample for
 ``eval``, one step for ``train``, one micro-batch for ``train_cli``,
 ``train_v1``, ``train_single``, ``train_nccl`` and ``train_fsdp``, one
@@ -1267,6 +1278,106 @@ def phase_parity():
         log(f"[parity] moge-2-vits-normal {key}: relative L2 {rel:.3e} (tol {MODEL_L2_RTOL})")
         if not rel <= MODEL_L2_RTOL:
             raise AssertionError(f"{key}: bf16-on-card vs fp32-on-CPU relative L2 {rel} > {MODEL_L2_RTOL}")
+
+
+EXPORT_HW = 518
+EXPORT_TOKENS = 1369
+EXPORT_L2_RTOL = 1e-3       # points, depth, normal: artifact vs live infer, relative L2 where both masks hold
+EXPORT_INTRINSICS_TOL = 1e-4
+EXPORT_MASK_AGREE = 0.999
+EXPORT_TURNS = 5            # warm calls of the artifact and of live infer, in alternating turns
+
+
+def phase_export(card: str, model):
+    """Export (``models/export.py``): ``model`` (moge-2-vitl-normal bf16,
+    sequential heads, a point map of known perspective) as the whole
+    ``infer`` program, camera solve inside (``with_postprocess``), saved to
+    bytes and loaded back; its outputs on one image against live ``infer``
+    (points, depth and normal within EXPORT_L2_RTOL relative L2 where both
+    masks hold, intrinsics within EXPORT_INTRINSICS_TOL, masks agreeing on
+    EXPORT_MASK_AGREE of the pixels; the largest elementwise difference and
+    whether the bits are equal, logged), its launches per run (counted under
+    ``export``, each on its Hopper variant); then the raw bf16 forward's
+    artifact against ``MoGeV2.forward`` at MODEL_L2_RTOL, counted the same
+    way; export seconds, artifact MB and the artifact's warm latency against
+    live ``infer`` in alternating turns."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.export import export_program, load_program
+    from moge_tpu_torch.models.presets import get_preset
+    from torch_tiny_config import make_points_perspective
+
+    t_phase = time.perf_counter()
+    expect = expected_launches(get_preset("moge-2-vitl-normal")["config"])
+    make_points_perspective(model.module)
+    image = torch.from_numpy(np.random.default_rng(SEED + 9).uniform(0, 1, (1, EXPORT_HW, EXPORT_HW, 3))
+                             .astype(np.float32)).to(DEVICE)
+    stats = {}
+
+    def counted(label, program):
+        reset_counts()
+        out = program(image)
+        synchronize()
+        counts = read_counts()
+        if counts != expect:
+            raise AssertionError(f"[export] {label}: launches {counts}, expected {expect} per run")
+        check_variants("export", label, counts)
+        return out
+
+    for form, post in (("infer", True), ("raw", False)):
+        t0 = time.perf_counter()
+        blob = export_program(model, EXPORT_HW, EXPORT_HW, EXPORT_TOKENS, with_postprocess=post,
+                              use_fp16=None if post else True)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = load_program(blob)
+        program(image)  # warm-up
+        synchronize()
+        load_s = time.perf_counter() - t0
+        got = counted(f"{form} artifact", program)
+        if post:
+            want = model.infer(image, num_tokens=EXPORT_TOKENS)
+            both = got["mask"] & want["mask"]
+            errs = {"mask_agree": (got["mask"] == want["mask"]).float().mean().item()}
+            for key in ("points", "depth", "normal"):
+                a, b = got[key][both].float(), want[key][both].float()
+                errs[key] = ((a - b).norm() / b.norm()).item()
+            errs["intrinsics"] = (got["intrinsics"] - want["intrinsics"]).abs().max().item()
+            ok = (errs["mask_agree"] >= EXPORT_MASK_AGREE and errs["intrinsics"] <= EXPORT_INTRINSICS_TOL
+                  and all(errs[k] <= EXPORT_L2_RTOL for k in ("points", "depth", "normal")) and both.any())
+        else:
+            with torch.no_grad():
+                want = model.module(image, EXPORT_TOKENS, torch.bfloat16)
+            errs = {key: ((got[key].float() - want[key].float()).norm() / want[key].float().norm()).item()
+                    for key in want}
+            ok = all(e <= MODEL_L2_RTOL for e in errs.values())
+        if set(got) != set(want):
+            raise AssertionError(f"[export] {form}: keys {sorted(got)}, expected {sorted(want)}")
+        finite = {k: torch.isfinite(v) for k, v in want.items() if v.is_floating_point()}
+        largest = max(((got[k] - want[k])[f].abs().max().item() if f.any() else 0.0) for k, f in finite.items())
+        identical = all(torch.equal(got[k], want[k]) for k in want)
+        log(f"[export] {form} artifact: export {export_s:.1f} s, {len(blob) / 1e6:.1f} MB, load + warm-up "
+            f"{load_s:.1f} s; against live {'infer' if post else 'MoGeV2.forward'}: {errs}, largest elementwise "
+            f"difference {largest:.3e}, bit-identical {identical}; launches per run {expect} ({card})")
+        if not ok:
+            raise AssertionError(f"[export] {form} artifact off live: {errs}")
+        stats[form] = {"export_s": export_s, "mb": len(blob) / 1e6, "load_s": load_s, "errs": errs,
+                       "largest_abs_diff": largest, "bit_identical": identical}
+        if post:
+            times = {"artifact": [], "live": []}
+            for _ in range(EXPORT_TURNS):
+                times["artifact"].append(wall_ms(lambda: program(image), 1))
+                times["live"].append(wall_ms(lambda: model.infer(image, num_tokens=EXPORT_TOKENS), 1))
+            stats[form].update({f"{k}_ms": statistics.median(v) for k, v in times.items()},
+                               turns_ms=times)
+            log(f"[export] warm latency in {EXPORT_TURNS} alternating turns: artifact "
+                f"{stats[form]['artifact_ms']:.2f} ms, live infer {stats[form]['live_ms']:.2f} ms "
+                f"(medians; {times}) ({card})")
+        del program, blob
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[export] phase {stats['seconds']:.1f} s")
+    return (expect, 2), stats
 
 
 def synchronize():
@@ -3397,6 +3508,7 @@ def main(argv=None) -> int:
     kernel_results.update(probe_results)
     seq, launches["infer"], latencies = phase_slice(card)
     phase_parity()
+    launches["export"], export_stats = phase_export(card, seq)
     bat, launches["batched_heads"], batched_ms = phase_batched(card, seq)
     del seq
     launches["serve"], serve_stats = phase_serve(card, bat, launches["batched_heads"][0])
@@ -3438,7 +3550,8 @@ def main(argv=None) -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **dict(*device),
                         **variants})
     print(json.dumps({"kernels": kernels, "infer_ms": latencies, "batched_heads_ms": batched_ms,
-                      "serve": serve_stats, "sp": sp_stats, "int8": int8_stats, "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
+                      "serve": serve_stats, "export": export_stats, "sp": sp_stats, "int8": int8_stats,
+                      "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
                       "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
                       "train_v1": train_v1_stats, "parallel": parallel_stats, "giant": giant_stats,
                       "probes": probe_tables}))

@@ -8,7 +8,11 @@ reuses it until one of its source parameters changes (in-place update,
 ``load_state_dict`` or a move to another device). With grad mode on and a
 source parameter that requires grad, it recomputes the tensor on every call
 under autograd, so gradients reach the parameters and no cached tensor
-outlives a parameter update.
+outlives a parameter update. While a program is traced (``torch.export``)
+it reads no parameter's address or version (a traced parameter may be a
+fake tensor): it returns the entry cached under the key for the same tag,
+so a program exported after one eager call of the same shapes holds the
+derived weights as constants (``models/export.py``).
 """
 
 from __future__ import annotations
@@ -27,14 +31,22 @@ def derived(module: nn.Module, key: Hashable, fn: Callable[..., Any], *params: t
     holds one tensor."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return fn(*params)
-    stamp = (tag, tuple((p._version, p.data_ptr(), p.device) for p in params))
     cache = module.__dict__.setdefault("_derived", {})
     hit = cache.get(key)
+    if torch.compiler.is_compiling():
+        return hit[1] if hit is not None and hit[0][0] == tag else fn(*params)
+    stamp = (tag, tuple((p._version, p.data_ptr(), p.device) for p in params))
     if hit is None or hit[0] != stamp:
-        with torch.no_grad():
-            hit = (stamp, fn(*params))
+        with torch.no_grad():  # from detached parameters: a view of one would still require grad
+            hit = (stamp, fn(*(p.detach() for p in params)))
         cache[key] = hit
     return hit[1]
+
+
+def drop_derived(module: nn.Module) -> None:
+    """Forget every cached derived weight of ``module`` and its submodules."""
+    for sub in module.modules():
+        sub.__dict__.pop("_derived", None)
 
 
 def cast(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:

@@ -58,7 +58,11 @@ class Conv1x1(nn.Module):
         return derived(self, ("matrix", dtype), lambda w: w[:, :, 0, 0].t().to(dtype), self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.matrix(x.dtype) + cast(self, "bias", x.dtype)
+        # the pixels as rows of one product, whatever x's strides: ``x @ m``
+        # would pick that or a batched product by x's strides and by whether m
+        # requires grad, which a program's constants never do
+        y = x.reshape(-1, x.shape[-1]) @ self.matrix(x.dtype)
+        return y.view(*x.shape[:-1], -1) + cast(self, "bias", x.dtype)
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,13 @@ Each ``csrc/<name>.cu`` is compiled on first use into a shared library with a
 plain C interface (``<name>-<hash>.so`` in ``moge_tpu_torch/_build``) and
 loaded with ``ctypes``. The hash covers the source, the shared headers and
 the compiler flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing here runs at import time: a CPU-only install never needs
+reused. Nothing is built at import time: a CPU-only install never needs
 nvcc.
+
+The kernel-backed ops also register here as dispatcher ops in the ``moge``
+namespace (``define_op``: a CUDA implementation that launches the kernel, a
+CPU one that runs the plain version, a fake one that gives the output
+shapes), so that ``torch.export`` records each launch as one node.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -29,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+LIBRARY = torch.library.Library("moge", "FRAGMENT")  # the ops torch.ops.moge.*
 BUILD_LOG: Dict[str, str] = {}  # nvcc/ptxas output per kernel (registers, smem, spills)
 
 
@@ -103,6 +109,34 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         lib.moge_error_string.restype = ctypes.c_char_p
         lib.moge_error_string.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {rc} ({lib.moge_error_string(rc).decode()})")
+
+
+def call_on(device: torch.device, fn: Callable[..., int], *args) -> int:
+    """``fn(*args, stream)`` with PyTorch's current stream on ``device``,
+    making ``device`` current only when it is not already."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Grad mode is on and one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def define_op(schema: str, cuda: Callable, cpu: Callable, fake: Callable) -> None:
+    """Register ``moge::<schema>`` with its CUDA (kernel launch), CPU (plain
+    version) and fake (output metadata) implementations, unless a copy of
+    this package loaded under another name (``tools/host_compare.py``) has
+    registered it in this process."""
+    name = schema.split("(", 1)[0]
+    if hasattr(torch.ops.moge, name):
+        return
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cuda, "CUDA")
+    LIBRARY.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"moge::{name}", fake, lib=LIBRARY)
 
 
 def require_cuda_tensor(t: torch.Tensor, what: str) -> None:

@@ -27,6 +27,14 @@ run). K2b-dq and K2b-dkv are Hopper kernels of the same kind for bf16
 (Q/dO and K/V rings by TMA, P and dS in registers); ``flash_bwd_plan``
 gives their launches, and each K2b launch is counted once more under its
 variant in ``BWD_VARIANT_LAUNCHES``.
+
+K2 is also the dispatcher op ``moge::flash_attention(q, k, v, kv_valid) ->
+(out, lse)``, registered when this module is imported: its CUDA
+implementation is the launch (``_launch``: the checks, ``flash_plan``, the
+ctypes call, the counts, all at run time), its CPU implementation the
+plain version, its fake implementation the output shapes. Without a
+gradient to take, the forward entries call the op while a program is
+traced (``torch.export``) and the launch directly otherwise.
 """
 
 from __future__ import annotations
@@ -214,16 +222,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int, **m
         raise ValueError(f"kv_valid must be in [1, {k.shape[1]}], got {kv_valid}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention output (B, Nq, H, D) and per-row logsumexp (B, H, Nq) fp32.
-
-    CUDA tensors run kernel K2; CPU tensors run ``attention_plain``."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors: (out, lse). Raises for anything it does not take."""
     global LAUNCHES
-    if kv_valid is None:
-        kv_valid = k.shape[1]
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, kv_valid, return_lse=True)
     _check(q, k, v, kv_valid)
     if q.dtype == torch.bfloat16:
         plan = flash_plan(q, k, v, kv_valid)
@@ -234,14 +235,43 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
     lib, fn = _fwd_entry()
-    with torch.cuda.device(q.device):  # launch on the tensors' card
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                B, H, Nq, kv_valid, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                D ** -0.5, _DTYPES[q.dtype], *tile, _build.stream_ptr(q))
+    rc = _build.call_on(q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                        B, H, Nq, kv_valid, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], D ** -0.5,
+                        _DTYPES[q.dtype], *tile)
     _build.check(lib, rc, "flash_attention")
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1
     return out, lse
+
+
+def _plain_op(q, k, v, kv_valid):
+    out, lse = attention_plain(q, k, v, kv_valid, return_lse=True)
+    return out.contiguous(), lse.contiguous()
+
+
+def _fake(q, k, v, kv_valid):
+    B, Nq, H, D = q.shape
+    return q.new_empty((B, Nq, H, D)), q.new_empty((B, H, Nq), dtype=torch.float32)
+
+
+_build.define_op("flash_attention(Tensor q, Tensor k, Tensor v, int kv_valid) -> (Tensor, Tensor)", _launch,
+                 _plain_op, _fake)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention output (B, Nq, H, D) and per-row logsumexp (B, H, Nq) fp32.
+
+    CUDA tensors run kernel K2; CPU tensors run ``attention_plain``. Without
+    a gradient to take, a traced program records the op
+    ``moge::flash_attention``."""
+    if kv_valid is None:
+        kv_valid = k.shape[1]
+    if not _build.needs_grad(q, k, v) and torch.compiler.is_compiling():
+        return torch.ops.moge.flash_attention(q, k, v, kv_valid)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, kv_valid, return_lse=True)
+    return _launch(q, k, v, kv_valid)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -283,10 +313,10 @@ def _bwd_setup(q, k, v, dout, lse, delta, kv_valid, outs):
         for t in filled:
             _store_check(t)
         variant = "wgmma"
-    lib = _build.load("flash_attn_bwd")
+    lib = _bwd_entries()[0]
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
     dims = (B, H, Nq, k.shape[1], kv_valid)
-    tail = (q.shape[-1] ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
+    tail = (q.shape[-1] ** -0.5, _DTYPES[q.dtype])
     return lib, variant, head, dims, tail, filled
 
 
@@ -299,16 +329,26 @@ def attention_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return prod.transpose(1, 2).sum(-1).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_entries():
+    """K2b's library and its two C entry points (dq, dkv), argtypes set (once)."""
+    lib = _build.load("flash_attn_bwd")
+    entries = []
+    for name, pointers in (("moge_flash_attention_bwd_dq", 7), ("moge_flash_attention_bwd_dkv", 8)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        entries.append(fn)
+    return lib, *entries
+
+
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid: int, dq: Optional[torch.Tensor] = None):
     """dq by kernel K2b-dq (CUDA tensors only)."""
     global DQ_LAUNCHES
     lib, variant, head, dims, tail, (dq,) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid, [("dq", dq, q)])
-    fn = lib.moge_flash_attention_bwd_dq
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):  # launch on the tensors' card
-        rc = fn(*head, dq.data_ptr(), *dims, _strides(q, k, v, dout, dq), *tail)
+    rc = _build.call_on(q.device, _bwd_entries()[1], *head, dq.data_ptr(), *dims, _strides(q, k, v, dout, dq),
+                        *tail)
     _build.check(lib, rc, "flash_attention_bwd_dq")
     DQ_LAUNCHES += 1
     BWD_VARIANT_LAUNCHES[variant] += 1
@@ -321,12 +361,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid: int, dk: Option
     global DKV_LAUNCHES
     lib, variant, head, dims, tail, (dk, dv) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid,
                                                           [("dk", dk, k), ("dv", dv, v)])
-    fn = lib.moge_flash_attention_bwd_dkv
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):  # launch on the tensors' card
-        rc = fn(*head, dk.data_ptr(), dv.data_ptr(), *dims, _strides(q, k, v, dout, dk, dv), *tail)
+    rc = _build.call_on(q.device, _bwd_entries()[2], *head, dk.data_ptr(), dv.data_ptr(), *dims,
+                        _strides(q, k, v, dout, dk, dv), *tail)
     _build.check(lib, rc, "flash_attention_bwd_dkv")
     DKV_LAUNCHES += 1
     BWD_VARIANT_LAUNCHES[variant] += 1
@@ -361,7 +397,7 @@ class _FlashQKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, kv_valid: int):
-        out, lse = flash_attention_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
+        out, lse = _launch(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
         ctx.save_for_backward(qkv, out, lse)
         ctx.kv_valid = kv_valid
         return out
@@ -379,9 +415,12 @@ def flash_attention_qkv(qkv: torch.Tensor, kv_valid: Optional[int] = None) -> to
     """Differentiable self-attention over a (B, N, 3, H, D) qkv projection ->
     (B, N, H, D). Keys at or past ``kv_valid`` (default N) are masked. CUDA
     tensors run K2 forward and K2b-dq/K2b-dkv backward; CPU tensors run
-    ``attention_plain`` under autograd."""
+    ``attention_plain`` under autograd. Without a gradient to take it is
+    ``flash_attention`` on the three views."""
     if kv_valid is None:
         kv_valid = qkv.shape[1]
+    if not _build.needs_grad(qkv):
+        return flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
     if qkv.device.type == "cpu":
         return attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
     return _FlashQKV.apply(qkv, kv_valid)

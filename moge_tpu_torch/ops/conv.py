@@ -30,6 +30,15 @@ pipelined variants, ``PIPELINED``, which every main-path shape takes;
 ``wgmma_generic`` (2-byte loads through registers, for an odd C or O or
 misaligned pointers) and ``fp32`` (the scalar fp32 kernel).
 
+K3 and K3-grouped are also the dispatcher op ``moge::conv3x3(x, kernel,
+bias, residual, input_relu)`` (a 5-dim kernel is K3-grouped), registered
+when this module is imported: its CUDA implementation is the launch
+(``_launch``: the checks, ``_tile_config`` and ``_alignment``, the ctypes
+call, the counts, all at run time), its CPU implementation the plain
+version, its fake implementation the output shape. Without a gradient to
+take, ``conv3x3_replicate`` calls the op while a program is traced
+(``torch.export``) and the launch directly otherwise.
+
 Weights use the JAX layout (3, 3, C, O); activations are NHWC.
 """
 
@@ -160,24 +169,17 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
     y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = _build.load("conv3x3")
-    if G:
-        fn, dims = lib.moge_conv3x3_grouped, (G, B // G, H, W, C, O)
-        fn.argtypes = _GROUPED_ARGTYPES
-    else:
-        fn, dims = lib.moge_conv3x3, (B, H, W, C, O)
-        fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib, shared, grouped = _entries()
+    fn, dims = (grouped, (G, B // G, H, W, C, O)) if G else (shared, (B, H, W, C, O))
     if x.dtype == torch.bfloat16:
         tile = _tile_config(G or 1, B // (G or 1), H, W, C, O, _build.sm_count(x.device),
                             _alignment(x, kernel, residual, y))
         variant = tile.variant
     else:
         tile, variant = (0, 0, 0), "fp32"
-    with torch.cuda.device(x.device):  # launch on the tensors' card
-        rc = fn(x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
-                None if residual is None else residual.data_ptr(), y.data_ptr(),
-                *dims, int(input_relu), _DTYPES[x.dtype], *tile, _build.stream_ptr(x))
+    rc = _build.call_on(x.device, fn, x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+                        None if residual is None else residual.data_ptr(), y.data_ptr(), *dims, int(input_relu),
+                        _DTYPES[x.dtype], *tile)
     _build.check(lib, rc, "conv3x3_replicate")
     if G:
         GROUPED_LAUNCHES += 1
@@ -185,6 +187,28 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
         LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    """K3's library and its two C entry points (shared, grouped weights), argtypes set (once)."""
+    lib = _build.load("conv3x3")
+    for fn, argtypes in ((lib.moge_conv3x3, _ARGTYPES), (lib.moge_conv3x3_grouped, _GROUPED_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, lib.moge_conv3x3, lib.moge_conv3x3_grouped
+
+
+def _plain_op(x, kernel, bias, residual, input_relu):
+    return conv3x3_plain(x, kernel, bias, residual, input_relu).contiguous()
+
+
+def _fake(x, kernel, bias, residual, input_relu):
+    return x.new_empty((*x.shape[:3], kernel.shape[-1]))
+
+
+_build.define_op("conv3x3(Tensor x, Tensor kernel, Tensor? bias, Tensor? residual, bool input_relu) -> Tensor",
+                 _launch, _plain_op, _fake)
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -212,10 +236,16 @@ def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torc
     ``input_relu``: ReLU on the input (exact: it commutes with the padding).
     CUDA tensors run kernel K3, or K3-grouped for a grouped kernel
     (differentiable: backward in plain PyTorch); CPU tensors run
-    ``conv3x3_plain``."""
+    ``conv3x3_plain``. Without a gradient to take, a traced program records
+    the op ``moge::conv3x3``."""
+    grad = _build.needs_grad(x, kernel, bias, residual)
+    if not grad and torch.compiler.is_compiling():
+        return torch.ops.moge.conv3x3(x, kernel, bias, residual, input_relu)
     if x.device.type == "cpu":
         return conv3x3_plain(x, kernel, bias, residual, input_relu)
     _build.require_cuda_tensor(x, "conv3x3_replicate")
+    if not grad:
+        return _launch(x, kernel, bias, residual, input_relu)
     return _Conv3x3.apply(x, kernel, bias, residual, input_relu)
 
 

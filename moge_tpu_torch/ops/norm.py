@@ -11,10 +11,19 @@ where D is a multiple of 16 bytes and every pointer is 16-byte aligned, else
 count, each warp walking several rows. Each launch is also counted under its
 variant in ``VARIANT_LAUNCHES``.
 
+K1 is also the dispatcher op ``moge::layer_norm(x, scale, bias, eps)``,
+registered when this module is imported: its CUDA implementation is the
+launch (``_launch``: the plan, the ctypes call, the counts, the error
+check, all at run time), its CPU implementation the plain version, and its
+fake implementation gives the output's shape, so ``torch.export`` records
+the op as one node and an exported program launches K1 when it runs.
+
 On the card K1 sits in an autograd Function whose backward is the autograd
 VJP of ``layer_norm_plain``, as the JAX package's ``_ln_bwd`` is the VJP of
 ``_ln_xla``: the TPU has no backward kernel for it either. Where no
-gradient is needed the kernel is launched directly.
+gradient is needed ``layer_norm_fp32`` calls the op while a program is
+traced and the launch directly otherwise: the dispatcher's hop costs host
+time on every call (PERF.md).
 """
 
 from __future__ import annotations
@@ -123,16 +132,23 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
     if M == 0:
         return y
     lib, fn = _kernel()
-    args = (*ptrs, M, D, eps, _DTYPES[x.dtype], _VARIANTS[plan.variant], plan.vectors, plan.grid)
-    if x.device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):  # launch on the tensors' card
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    rc = _build.call_on(x.device, fn, *ptrs, M, D, eps, _DTYPES[x.dtype], _VARIANTS[plan.variant], plan.vectors,
+                        plan.grid)
     _build.check(lib, rc, "layer_norm_fp32")
     LAUNCHES += 1
     VARIANT_LAUNCHES[plan.variant] += 1
     return y
+
+
+def _plain_op(x, scale, bias, eps):
+    return layer_norm_plain(x, scale, bias, eps).contiguous()
+
+
+def _fake(x, scale, bias, eps):
+    return x.new_empty(x.shape)
+
+
+_build.define_op("layer_norm(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor", _launch, _plain_op, _fake)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -155,10 +171,15 @@ def layer_norm_fp32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     statistics; ``scale``/``bias`` are fp32 (D,). Output dtype = input dtype.
 
     CUDA tensors run kernel K1 (differentiable: backward in plain PyTorch);
-    CPU tensors run ``layer_norm_plain``."""
+    CPU tensors run ``layer_norm_plain``. Without a gradient to take, a
+    traced program (``torch.export``, ``torch.compile``) records the op
+    ``moge::layer_norm``."""
+    grad = _build.needs_grad(x, scale, bias)
+    if not grad and torch.compiler.is_compiling():
+        return torch.ops.moge.layer_norm(x, scale, bias, eps)
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     _build.require_cuda_tensor(x, "layer_norm_fp32")
-    if not torch.is_grad_enabled() or not (x.requires_grad or scale.requires_grad or bias.requires_grad):
+    if not grad:
         return _launch(x, scale, bias, eps)
     return _LayerNorm.apply(x, scale, bias, eps)

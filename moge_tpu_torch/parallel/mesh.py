@@ -63,8 +63,9 @@ def _drop_derived(module: nn.Module, *_) -> None:
     gathers a unit's parameters into storage it frees after use and may
     reallocate at the same address, and it keeps their version counters:
     the cache's key (version, address) cannot see the new values."""
-    for sub in module.modules():
-        sub.__dict__.pop("_derived", None)
+    from ..models._weights import drop_derived
+
+    drop_derived(module)
 
 
 def _units(module: nn.Module) -> Iterable[nn.Module]:

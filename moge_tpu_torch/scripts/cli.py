@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m moge_tpu_torch.scripts.cli
-{infer,serve,infer_panorama,eval_baseline,infer_baseline,train,vis_data}
+{infer,serve,infer_panorama,eval_baseline,infer_baseline,train,vis_data,export_program}
 ...``. Only the ported commands are offered."""
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ def command():
     import click
 
     from .eval_baseline import command as eval_baseline_command
+    from .export_program import command as export_program_command
     from .infer import command as infer_command
     from .infer_baseline import command as infer_baseline_command
     from .infer_panorama import command as infer_panorama_command
@@ -28,6 +29,7 @@ def command():
     cli.add_command(infer_baseline_command(), name="infer_baseline")
     cli.add_command(train_command(), name="train")
     cli.add_command(vis_data_command(), name="vis_data")
+    cli.add_command(export_program_command(), name="export_program")
     return cli
 
 

@@ -1,19 +1,21 @@
-"""Minimal OpenEXR writer (float32, uncompressed scanlines).
+"""Minimal OpenEXR codec (float32, uncompressed scanlines).
 
-Single-part scanline EXR 2.0 files, FLOAT pixels, NO_COMPRESSION, readable by
-any standard EXR implementation (a copy of the writer of the JAX package's
-bundled codec; OpenCV builds often lack an EXR codec).
+Writes single-part scanline EXR 2.0 files, FLOAT pixels, NO_COMPRESSION,
+readable by any standard EXR implementation; reads the same subset (plus
+HALF pixels), which covers the files it writes. A copy of the JAX package's
+bundled codec (OpenCV builds often lack an EXR codec).
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import List, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
 _MAGIC = 20000630
+_PIXELTYPE_HALF = 1
 _PIXELTYPE_FLOAT = 2
 
 
@@ -69,3 +71,59 @@ def write_exr(path: Union[str, Path], data: np.ndarray, channel_names: List[str]
         for y in range(h):
             f.write(struct.pack("<ii", y, c * w * 4))
             f.write(ordered[y].astype("<f4").tobytes())
+
+
+def read_exr(path: Union[str, Path]) -> Tuple[np.ndarray, List[str]]:
+    """Read an uncompressed scanline EXR -> ((H, W, C) float32, channel names)."""
+    buf = Path(path).read_bytes()
+    magic, _version = struct.unpack_from("<Ii", buf, 0)
+    if magic != _MAGIC:
+        raise ValueError(f"{path}: not an EXR file")
+    pos = 8
+
+    def read_cstr(p):
+        end = buf.index(b"\0", p)
+        return buf[p:end].decode(), end + 1
+
+    attrs: Dict[str, Tuple[str, bytes]] = {}
+    while buf[pos] != 0:
+        name, pos = read_cstr(pos)
+        type_, pos = read_cstr(pos)
+        (size,) = struct.unpack_from("<i", buf, pos)
+        pos += 4
+        attrs[name] = (type_, buf[pos:pos + size])
+        pos += size
+    pos += 1
+
+    comp = attrs["compression"][1][0]
+    if comp != 0:
+        raise ValueError(f"{path}: only NO_COMPRESSION EXRs are supported (compression {comp})")
+    x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+
+    channels = []
+    cbuf, cpos = attrs["channels"][1], 0
+    while cbuf[cpos] != 0:
+        end = cbuf.index(b"\0", cpos)
+        name = cbuf[cpos:end].decode()
+        (ptype,) = struct.unpack_from("<i", cbuf, end + 1)
+        cpos = end + 1 + 4 + 4 + 8  # ptype, pLinear + reserved, sampling
+        channels.append((name, ptype))
+
+    pos += 8 * h  # the offset table
+    out = np.zeros((h, len(channels), w), np.float32)
+    for _ in range(h):
+        y, size = struct.unpack_from("<ii", buf, pos)
+        row = buf[pos + 8:pos + 8 + size]
+        pos += 8 + size
+        off = 0
+        for j, (name, ptype) in enumerate(channels):
+            if ptype == _PIXELTYPE_FLOAT:
+                out[y - y0, j] = np.frombuffer(row, "<f4", count=w, offset=off)
+                off += 4 * w
+            elif ptype == _PIXELTYPE_HALF:
+                out[y - y0, j] = np.frombuffer(row, "<f2", count=w, offset=off).astype(np.float32)
+                off += 2 * w
+            else:
+                raise ValueError(f"{path}: unsupported pixel type {ptype}")
+    return out.transpose(0, 2, 1), [name for name, _ in channels]

@@ -1,6 +1,7 @@
 """Host-side numpy geometry of the CLI, the panorama, the eval loader and
-the training loader: the pixel-center uv map, intrinsics from and to a field
-of view, depth to points and normals, occlusion and normal edges, the masked
+the training loader: weighted and harmonic means, the view-plane and
+pixel-center uv maps, intrinsics from and to a field
+of view, depth to points and normals, occlusion edges (depth ratio and disparity window) and normal edges, the masked
 nearest resize, OpenCV-convention projection, the 2D helpers of the loaders'
 crop and warp, and the depth-of-field blur of the training augmentation.
 Copies of the matching functions of the JAX package's
@@ -12,11 +13,40 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["uv_map_numpy", "focal_to_fov_numpy", "fov_to_focal_numpy", "intrinsics_to_fov_numpy",
+__all__ = ["weighted_mean_numpy", "harmonic_mean_numpy", "normalized_view_plane_uv_numpy", "uv_map_numpy",
+           "focal_to_fov_numpy", "fov_to_focal_numpy", "intrinsics_to_fov_numpy",
            "intrinsics_from_focal_center_numpy", "intrinsics_from_fov_numpy", "depth_map_to_point_map_numpy",
-           "point_map_to_normal_map_numpy", "depth_map_to_normal_map_numpy", "depth_map_edge_numpy", "normal_map_edge_numpy",
+           "point_map_to_normal_map_numpy", "depth_map_to_normal_map_numpy", "depth_map_edge_numpy",
+           "depth_occlusion_edge_numpy", "normal_map_edge_numpy",
            "masked_nearest_resize_numpy", "norm3d", "unproject_cv_numpy", "project_cv_numpy", "uv_to_pixel_numpy",
            "rotation_matrix_from_vectors", "ray_intersection", "disk_kernel", "disk_blur", "depth_of_field"]
+
+
+def weighted_mean_numpy(x, w=None, axis=None, keepdims=False, eps=1e-7):
+    if w is None:
+        return np.mean(x, axis=axis, keepdims=keepdims)
+    w = w.astype(x.dtype)
+    return (x * w).mean(axis=axis, keepdims=keepdims) / np.clip(w.mean(axis=axis, keepdims=keepdims), eps, None)
+
+
+def harmonic_mean_numpy(x, w=None, axis=None, keepdims=False, eps=1e-7):
+    if w is None:
+        return 1 / (1 / np.clip(x, eps, None)).mean(axis=axis, keepdims=keepdims)
+    w = w.astype(x.dtype)
+    return 1 / (weighted_mean_numpy(1 / (x + eps), w, axis=axis, keepdims=keepdims, eps=eps) + eps)
+
+
+def normalized_view_plane_uv_numpy(width: int, height: int, aspect_ratio: Optional[float] = None,
+                                   dtype=np.float32) -> np.ndarray:
+    """UV grid spanning +-(w/diag, h/diag) at pixel centers, (H, W, 2)."""
+    if aspect_ratio is None:
+        aspect_ratio = width / height
+    span_x = aspect_ratio / (1 + aspect_ratio ** 2) ** 0.5
+    span_y = 1 / (1 + aspect_ratio ** 2) ** 0.5
+    u = np.linspace(-span_x * (width - 1) / width, span_x * (width - 1) / width, width, dtype=dtype)
+    v = np.linspace(-span_y * (height - 1) / height, span_y * (height - 1) / height, height, dtype=dtype)
+    u, v = np.meshgrid(u, v, indexing="xy")
+    return np.stack([u, v], axis=-1)
 
 
 def uv_map_numpy(height: int, width: int, dtype=np.float32) -> np.ndarray:
@@ -294,6 +324,29 @@ def ray_intersection(p1: np.ndarray, d1: np.ndarray, p2: np.ndarray, d2: np.ndar
         t1 = (dp[..., 0] * d2[..., 1] - dp[..., 1] * d2[..., 0]) / cross
     pts = p1 + t1[..., None] * d1
     return pts, t1
+
+
+def depth_occlusion_edge_numpy(depth: np.ndarray, mask: np.ndarray, thickness: int = 1,
+                               tol: float = 0.1) -> np.ndarray:
+    """Occlusion edges from a disparity window (reference geometry_numpy.py):
+    pixels in front of (behind) their window's masked mean disparity by
+    ``tol``, where a foreground and a background edge meet, dilated by
+    ``thickness``."""
+    import cv2
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    disp = np.where(mask, 1 / depth, 0)
+    disp_pad = np.pad(disp, (thickness, thickness), constant_values=0)
+    mask_pad = np.pad(mask, (thickness, thickness), constant_values=False)
+    kernel_size = 2 * thickness + 1
+    disp_window = sliding_window_view(disp_pad, (kernel_size, kernel_size))
+    mask_window = sliding_window_view(mask_pad, (kernel_size, kernel_size))
+    disp_mean = weighted_mean_numpy(disp_window, mask_window, axis=(-2, -1))
+    fg_edge_mask = mask & (disp > (1 + tol) * disp_mean)
+    bg_edge_mask = mask & (disp_mean > (1 + tol) * disp)
+    kernel = np.ones((3, 3), dtype=np.uint8)
+    return ((cv2.dilate(fg_edge_mask.astype(np.uint8), kernel, iterations=thickness) > 0)
+            & (cv2.dilate(bg_edge_mask.astype(np.uint8), kernel, iterations=thickness) > 0))
 
 
 def disk_kernel(radius: int) -> np.ndarray:

@@ -169,6 +169,14 @@ def write_json(path: PathOrIO, content):
         path.write(text)
 
 
+def read_exr(path: Union[str, os.PathLike]) -> np.ndarray:
+    """Read a float EXR -> (H, W) or (H, W, C) float32 (``exr.read_exr``)."""
+    from .exr import read_exr as _read
+
+    data, _names = _read(path)
+    return data[..., 0] if data.shape[-1] == 1 else data
+
+
 def write_exr(path: Union[str, os.PathLike], data: np.ndarray):
     """Write float32 data as an uncompressed EXR (``exr.write_exr``)."""
     from .exr import write_exr as _write

@@ -1,6 +1,7 @@
 """General utilities (reference moge/utils/tools.py): nested-dict metric
-averaging, flatten/unflatten, a timer that waits for the card, and module
-import by path. Copies of the JAX package's ``moge_tpu/utils/tools.py``."""
+averaging, flatten/unflatten, a timer that waits for the card, a profiler
+trace of a block of code, and module import by path. Copies of the JAX
+package's ``moge_tpu/utils/tools.py``, the trace by ``torch.profiler``."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Callable, Dict, Generator, List, Optional, Union
 import torch
 
 __all__ = ["catch_exception", "key_average", "flatten_nested_dict", "unflatten_nested_dict", "timeit",
-           "import_file_as_module", "traverse_nested_dict_keys"]
+           "profile_trace", "import_file_as_module", "traverse_nested_dict_keys"]
 
 
 def catch_exception(fn: Callable) -> Callable:
@@ -118,6 +119,35 @@ class timeit:
     @classmethod
     def history(cls, name: str) -> List[float]:
         return cls._history[name]
+
+
+class profile_trace:
+    """A ``torch.profiler`` trace of the block (the host's ops, and the card's
+    kernels when a card is present), written into ``log_dir`` as a Chrome
+    trace (``trace.json``, for Perfetto or chrome://tracing):
+
+        with profile_trace("/tmp/moge_trace"):
+            model.infer(image)
+    """
+
+    def __init__(self, log_dir: Union[str, Path]):
+        self.log_dir = Path(log_dir)
+        self.path = self.log_dir / "trace.json"
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.path))
+        print(f"profiler trace written to {self.path}")
+        return False
 
 
 def import_file_as_module(path: Union[str, Path], module_name: Optional[str] = None):

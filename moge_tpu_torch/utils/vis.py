@@ -1,6 +1,7 @@
-"""Depth, disparity and normal colorization (reference moge/utils/vis.py,
-Spectral colormap). Copies of the JAX package's ``moge_tpu/utils/vis.py``
-functions; matplotlib is imported inside them."""
+"""Depth, disparity, normal, segmentation and error-map colorization
+(reference moge/utils/vis.py; Spectral, Set1 and plasma colormaps). Copies
+of the JAX package's ``moge_tpu/utils/vis.py``; matplotlib is imported
+inside the functions."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["colorize_depth", "colorize_depth_affine", "colorize_disparity", "colorize_normal"]
+__all__ = ["colorize_depth", "colorize_depth_affine", "colorize_disparity", "colorize_segmentation",
+           "colorize_normal", "colorize_error_map"]
 
 
 def _nanquantile_range(x: np.ndarray, lo: float, hi: float) -> Tuple[float, float]:
@@ -62,8 +64,26 @@ def colorize_disparity(disparity: np.ndarray, mask: Optional[np.ndarray] = None,
     return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))
 
 
+def colorize_segmentation(segmentation: np.ndarray, cmap: str = "Set1") -> np.ndarray:
+    import matplotlib
+
+    colored = matplotlib.colormaps[cmap]((segmentation % 20) / 20)[..., :3]
+    return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))
+
+
 def colorize_normal(normal: np.ndarray, mask: Optional[np.ndarray] = None) -> np.ndarray:
     if mask is not None:
         normal = np.where(mask[..., None], normal, 0)
     normal = normal * [0.5, -0.5, -0.5] + 0.5
     return (normal.clip(0, 1) * 255).astype(np.uint8)
+
+
+def colorize_error_map(error_map: np.ndarray, mask: Optional[np.ndarray] = None, cmap: str = "plasma",
+                       value_range: Optional[Tuple[float, float]] = None) -> np.ndarray:
+    import matplotlib
+
+    vmin, vmax = value_range if value_range is not None else _nanquantile_range(error_map, 0.0, 1.0)
+    colored = matplotlib.colormaps[cmap](((error_map - vmin) / (vmax - vmin)).clip(0, 1))[..., :3]
+    if mask is not None:
+        colored = np.where(mask[..., None], colored, 0)
+    return np.ascontiguousarray((colored.clip(0, 1) * 255).astype(np.uint8))

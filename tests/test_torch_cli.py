@@ -1,8 +1,8 @@
 """The port's inference CLI (moge_tpu_torch.scripts.infer, grouped in
 moge_tpu_torch.scripts.cli) through click's CliRunner on the CPU: tiny
 MoGe-2 and MoGe-1 checkpoints written as reference-format ``.pt`` files,
-the maps and fov.json it writes, the panorama command, and the command
-group with its refusal of a missing card."""
+the maps and fov.json it writes, the panorama command, the export command,
+and the command group with its refusal of a missing card."""
 
 import json
 from pathlib import Path
@@ -14,6 +14,7 @@ import torch
 from moge_tpu_torch.models import import_model_class_by_version
 from moge_tpu_torch.models.v1 import MoGeModel as MoGeV1Model
 from moge_tpu_torch.models.v2 import MoGeModel
+from moge_tpu_torch.models.export import export_program, load_program
 from moge_tpu_torch.scripts import cli, infer, infer_panorama
 from torch_tiny_config import TINY_CONFIG, make_points_perspective
 
@@ -122,12 +123,12 @@ def test_cli_group_offers_the_ported_commands():
 
     group = cli.command()
     assert set(group.commands) == {"infer", "serve", "infer_panorama", "eval_baseline", "infer_baseline", "train",
-                                   "vis_data"}
+                                   "vis_data", "export_program"}
     result = CliRunner().invoke(group, ["--help"])
     assert result.exit_code == 0 and all(name in result.output for name in group.commands)
 
 
-@pytest.mark.parametrize("name", ["infer_panorama", "eval_baseline", "infer_baseline"])
+@pytest.mark.parametrize("name", ["infer_panorama", "eval_baseline", "infer_baseline", "export_program"])
 def test_new_commands_refuse_a_missing_card(checkpoints, tmp_path, name):
     """``--device cuda`` (the default) without a card is refused up front:
     by the command, or by the port's MoGe adapter the eval commands load."""
@@ -144,9 +145,32 @@ def test_new_commands_refuse_a_missing_card(checkpoints, tmp_path, name):
             "eval_baseline": ["--baseline", adapter, "--config", str(config), "-o", str(tmp_path / "r.json"),
                               "--pretrained", str(checkpoints["v2"]), "--device", "cuda"],
             "infer_baseline": ["--baseline", adapter, "-i", str(tmp_path / "scene.png"), "--pretrained",
-                               str(checkpoints["v2"]), "--device", "cuda"]}[name]
+                               str(checkpoints["v2"]), "--device", "cuda"],
+            "export_program": ["--pretrained", str(checkpoints["v2"]), "-o", str(tmp_path / "m.pt2")]}[name]
     result = CliRunner().invoke(cli.command(), [name, *args])
     assert result.exit_code == 2 and "no CUDA device" in result.output, result.output
+
+
+@pytest.mark.parametrize("post", [False, True], ids=["raw", "with_postprocess"])
+def test_export_program_cli_writes_the_artifact(checkpoints, tmp_path, post):
+    """The command's artifact (the checkpoint loaded in bf16, as the JAX
+    command loads it) gives the outputs of ``export_program``'s on the same
+    model, and its summary line names the form, shape and size."""
+    from click.testing import CliRunner
+
+    args = ["export_program", "--pretrained", str(checkpoints["v2"]), "-o", str(tmp_path / "m.pt2"),
+            "--height", "56", "--width", "70", "--num_tokens", "16", "--device", "cpu"]
+    result = CliRunner().invoke(cli.command(), args + (["--with_postprocess"] if post else []))
+    assert result.exit_code == 0, result.output
+    blob = (tmp_path / "m.pt2").read_bytes()
+    kind = "infer (with camera recovery)" if post else "raw forward"
+    assert result.output.strip() == (f"wrote {tmp_path / 'm.pt2'} ({kind}, 1x56x70, 16 tokens, "
+                                     f"{len(blob) / 1e6:.1f} MB)")
+    model = MoGeModel.from_pretrained(checkpoints["v2"], device="cpu", dtype=torch.bfloat16)
+    image = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (1, 56, 70, 3)).astype(np.float32))
+    got = load_program(blob)(image)
+    want = load_program(export_program(model, 56, 70, 16, with_postprocess=post))(image)
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_infer_panorama_cli_writes_the_maps_and_warns_on_show(tmp_path):

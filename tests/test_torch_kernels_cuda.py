@@ -545,3 +545,111 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
         dense.dense_objective_v1(A.t(), wx, wy, 1.0)
     with pytest.raises(ValueError):  # a tile the library was not built with
         dense.dense_objective_v2(A, wx, wy, 1.0, tile=16)
+
+
+def _counts():
+    return {"K1": norm.LAUNCHES, "K2": attention.LAUNCHES, "K3": conv.LAUNCHES, "K3g": conv.GROUPED_LAUNCHES,
+            **{f"K1 {k}": n for k, n in norm.VARIANT_LAUNCHES.items()},
+            **{f"K2 {k}": n for k, n in attention.VARIANT_LAUNCHES.items()},
+            **{f"K3 {k}": n for k, n in conv.VARIANT_LAUNCHES.items()}}
+
+
+def _moved(before):
+    return {k: n - before[k] for k, n in _counts().items() if n != before[k]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_launch_the_kernels(dev, dtype):
+    """The dispatcher ops' CUDA implementations (the route of a traced
+    program) and the wrappers' eager route: each call one launch, counted
+    once under its kernel and once under its variant, within the kernel's
+    tolerance of its plain version; the two routes give the same bits."""
+    g = _gen(dev, 17)
+    bf16 = dtype == torch.bfloat16
+    x = (torch.randn(1370, 1024, device=dev, generator=g) * 3 + 1).to(dtype)
+    s, b = torch.randn(1024, device=dev, generator=g), torch.randn(1024, device=dev, generator=g)
+    for call in (lambda: torch.ops.moge.layer_norm(x, s, b, 1e-6), lambda: norm.layer_norm_fp32(x, s, b)):
+        before = _counts()
+        got = call()
+        assert _moved(before) == {"K1": 1, "K1 vec16": 1}
+    assert torch.equal(got, torch.ops.moge.layer_norm(x, s, b, 1e-6))
+    want = norm.layer_norm_plain(x.float(), s, b)
+    tol = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7) + FP32_TOL if bf16 else FP32_TOL
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+    qkv = torch.randn(1, 1370, 3, 16, 64, device=dev, generator=g).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    variant = "K2 wgmma" if bf16 else "K2 fp32"
+    for call in (lambda: torch.ops.moge.flash_attention(q, k, v, 1300),
+                 lambda: attention.flash_attention_fwd(q, k, v, 1300)):
+        before = _counts()
+        out, lse = call()
+        assert _moved(before) == {"K2": 1, variant: 1}
+    want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), 1300, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
+    assert (out.float() - want).abs().max().item() <= (K2_BF16_ABS if bf16 else 10 * FP32_TOL)
+
+    for lead, counter in (((), "K3"), ((3,), "K3g")):
+        xc = torch.randn(3, 74, 74, 64, device=dev, generator=g).to(dtype)
+        kc = (torch.randn(*lead, 3, 3, 64, 64, device=dev, generator=g) * 24 ** -1).to(dtype)
+        bc = torch.randn(*lead, 64, device=dev, generator=g)
+        rc = torch.randn(3, 74, 74, 64, device=dev, generator=g).to(dtype)
+        for call in (lambda: torch.ops.moge.conv3x3(xc, kc, bc, rc, True),
+                     lambda: conv.conv3x3_replicate(xc, kc, bc, rc, True)):
+            before = _counts()
+            got = call()
+            moved = _moved(before)
+            assert moved.pop(counter) == 1 and list(moved.values()) == [1]
+            assert next(iter(moved)) in ([f"K3 {v}" for v in conv.PIPELINED] if bf16 else ["K3 fp32"])
+        _check_conv(got.float(), conv.conv3x3_plain(xc.float(), kc.float(), bc, rc.float(), True), dtype)
+
+
+def test_opcheck_on_the_card(dev):
+    g = _gen(dev, 19)
+    x = torch.randn(37, 192, device=dev, generator=g).to(torch.bfloat16)
+    s, b = torch.randn(192, device=dev, generator=g), torch.randn(192, device=dev, generator=g)
+    torch.library.opcheck(torch.ops.moge.layer_norm.default, (x, s, b, 1e-6))
+    qkv = torch.randn(2, 200, 3, 3, 64, device=dev, generator=g).to(torch.bfloat16)
+    torch.library.opcheck(torch.ops.moge.flash_attention.default, (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], 150))
+    for lead in ((), (2,)):
+        xc = torch.randn(2, 9, 13, 64, device=dev, generator=g).to(torch.bfloat16)
+        kc = (torch.randn(*lead, 3, 3, 64, 32, device=dev, generator=g) * 0.05).to(torch.bfloat16)
+        for bias, res in ((None, None), (torch.randn(*lead, 32, device=dev, generator=g),
+                                         torch.randn(2, 9, 13, 32, device=dev, generator=g).to(torch.bfloat16))):
+            torch.library.opcheck(torch.ops.moge.conv3x3.default, (xc, kc, bias, res, True))
+
+
+def test_raw_forward_export_on_card_matches_cpu_export(dev):
+    """moge-2-vits-normal's raw forward exported on the card (fp32, and bf16
+    the serving configuration) and on the CPU (fp32): each artifact reloaded
+    from its bytes, the card's within summation order (fp32) or within
+    ``chip_smoke.MODEL_L2_RTOL`` (bf16) of the CPU's, relative L2 per map;
+    the card's artifact launches the kernels through the ops."""
+    import sys
+    from pathlib import Path
+
+    from moge_tpu_torch.models.export import export_program, load_program
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.models.v2 import MoGeModel
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import MODEL_L2_RTOL, expected_launches
+
+    config = get_preset("moge-2-vits-normal")["config"]
+    gpu = MoGeModel(config, dev, torch.bfloat16).init_random(seed=0)
+    cpu = MoGeModel(config, "cpu", torch.float32)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
+    image = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 224, 280, 3)).astype(np.float32))
+    want = load_program(export_program(cpu, 224, 280, 320))(image)
+    expect = expected_launches(config)
+    for fp16, rtol in ((False, 1e-4), (True, MODEL_L2_RTOL)):
+        program = load_program(export_program(gpu, 224, 280, 320, use_fp16=fp16))
+        before = _counts()
+        got = program(image.to(dev))
+        moved = _moved(before)
+        assert (moved["K1"], moved["K2"], moved["K3"]) == (expect["layer_norm"], expect["flash_attention"],
+                                                          expect["conv3x3"])
+        assert set(got) == set(want)
+        for key in want:
+            a, b = got[key].float().cpu(), want[key]
+            assert ((a - b).norm() / b.norm()).item() <= rtol, (key, fp16)

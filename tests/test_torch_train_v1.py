@@ -23,6 +23,7 @@ from moge_tpu.models import modules as jmod
 from moge_tpu.models import v1 as jv1
 from moge_tpu.models.v1 import MoGeModel as JaxMoGeModel
 from moge_tpu.train import step as jstep
+from moge_tpu.train import utils as jutils
 from moge_tpu.ops import geometry as jgeo
 from moge_tpu_torch.models import modules as tmodules
 from moge_tpu_torch.models.dinov2 import VIT_ARCHS, DinoVisionTransformer
@@ -31,7 +32,9 @@ from moge_tpu_torch.models.v1 import MoGeModel, MoGeV1
 from moge_tpu_torch.scripts import cli
 from moge_tpu_torch.train import losses
 from moge_tpu_torch.train import step as tstep
+from moge_tpu_torch.train import utils as tutils
 from test_torch_losses import _jax_local_draws
+from test_torch_train import STEP_TOL
 from torch_tiny_config import v1_state_dict_from_jax_params, write_train_dataset
 
 torch.set_num_threads(1)
@@ -125,7 +128,7 @@ def v1_steps():
     head's activations (|input| < 1e-5), which moved its gradients by up to
     0.23% of each tensor's largest element on an x86 CPU. Returns (JAX: grads, metrics;
     the port: module, grads, metrics, the ReLU inputs where the port's own
-    branch differs)."""
+    branch differs). JAX's side also carries the parameters it started from."""
     loss = _loss_config()
     label_types = sorted(loss)
     batch = _batch(label_types, h=112, w=112)
@@ -172,14 +175,14 @@ def v1_steps():
         grads_t, metrics_t = tstep.make_grad_step(module, loss, label_types, NUM_TOKENS, torch.float32)(
             {k: torch.from_numpy(v) for k, v in batch.items()}, torch.Generator())
         assert not queue and not branches
-    return (grads_j, metrics_j), (module, grads_t, metrics_t, torch.cat(departed))
+    return (grads_j, metrics_j, params), (module, grads_t, metrics_t, torch.cat(departed))
 
 
 def test_v1_grad_step_matches_jax(v1_steps):
     """The grad step's metrics at the v2 step's tolerances, and every
     trainable parameter's gradient; the port's own ReLU branches differ
     from JAX's only at a few inputs within rounding of 0."""
-    (grads_j, metrics_j), (module, grads_t, metrics_t, departed) = v1_steps
+    (grads_j, metrics_j, _), (module, grads_t, metrics_t, departed) = v1_steps
     assert departed.numel() <= 8 and bool((departed.abs() < 1e-5).all()), departed
     assert set(metrics_t) == set(metrics_j) and float(metrics_j["patch_16"]) > 0
     for k, want in metrics_j.items():
@@ -191,6 +194,40 @@ def test_v1_grad_step_matches_jax(v1_steps):
         assert float(w.abs().max()) > 0, name
         torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL * w.abs().max().item(),
                                    msg=lambda m: f"{name}: {m}")
+
+
+def test_v1_apply_step_matches_jax(v1_steps):
+    """The rest of a MoGe-1 step: both packages' ``make_apply_step`` under
+    v1.json's optimizer (its param groups, the SequentialLR schedule, the
+    global-norm clip) and the EMA, fed the same gradients (JAX's, from
+    ``v1_steps``), hold the updated parameters and EMA to the v2 step's
+    ``STEP_TOL``. So a whole step's distance to JAX's comes from the
+    gradients alone, whose last digits move the update only where a
+    gradient is near Adam's eps; ``test_v1_grad_step_matches_jax`` bounds
+    the gradients."""
+    (grads_j, _, params), _ = v1_steps
+    before = v1_state_dict_from_jax_params(TINY_V1, params)
+    module = MoGeV1(**TINY_V1)
+    module.load_state_dict(before, strict=True)
+    tx_j = jutils.build_optimizer(params, V1["optimizer"], V1["lr_scheduler"])
+    tx_t = tutils.build_optimizer(module, V1["optimizer"], V1["lr_scheduler"])
+    state_j, ok_j = jax.jit(jstep.make_apply_step(tx_j))(jstep.init_train_state(params, tx_j), grads_j)
+    grads = v1_state_dict_from_jax_params(TINY_V1, jax.tree.map(np.asarray, grads_j))
+    trainable = [n for n, p in module.named_parameters() if p.requires_grad]
+    state_t, ok_t = tstep.make_apply_step(tx_t)(tstep.init_train_state(module, tx_t),
+                                                {n: grads[n] for n in trainable})
+    assert bool(ok_j) and ok_t and state_t.step == int(state_j.step) == 1
+    want = v1_state_dict_from_jax_params(TINY_V1, jax.tree.map(np.asarray, state_j.params))
+    want_ema = v1_state_dict_from_jax_params(TINY_V1, jax.tree.map(np.asarray, state_j.ema_params))
+    named = dict(module.named_parameters())
+    moved = 0
+    for name in trainable:
+        moved += int(not torch.equal(named[name].detach(), before[name]))
+        np.testing.assert_allclose(named[name].detach().numpy(), want[name].numpy(), rtol=0, atol=STEP_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(state_t.ema_params[name].numpy(), want_ema[name].numpy(), rtol=0,
+                                   atol=STEP_TOL, err_msg=name)
+    assert moved > 0  # the head's group (lr 1e-4) moved; the backbone's starts at lr 0 under the warm-up
 
 
 @pytest.mark.parametrize("size", [84, 96])
