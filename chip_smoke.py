@@ -34,6 +34,15 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    could take, from the bytes it must move and its operations at the peak
    rate of their type) and the time of one PyTorch call that computes the
    same function, where there is one;
+3a. the truncated align's forms at the four v2 loss shapes (label type A,
+   batch 2), full rows: dense on K4, ``events`` and ``prefix``
+   (``MOGE_ALIGN_TRUNC_IMPL``), scalar truncation and at patch_16 a
+   per-element one; each sorted form's index attains K4's minimum, times
+   and peak memory per form; the bitonic network against torch.sort on the
+   events sort (3L <= 2048), bit for bit, and its time; then the v2 grad
+   step (batch 2, 512^2, 1369 tokens) under dense, events and prefix from
+   one state: loss and gradient norm against dense's, no K4 launch under
+   the sorted forms, step times;
 3b. probes: the ported TPU probes T1 (seven softmax variants of a flash
    forward, N = 3601 and a ragged 1201, and 1216 rows, not a multiple of
    the kernel's key tile; ``base`` at 3601 also by device time beside
@@ -150,7 +159,9 @@ summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads``, ``moge1_infer`` and ``giant``, one
 artifact run for ``export``, one
-batch for ``serve``, one 12-view panorama for ``panorama``, one sample for
+batch for ``serve``, one dense solve for ``align_forms``, one grad step
+for ``train_events`` and ``train_prefix``, one 12-view panorama for
+``panorama``, one sample for
 ``eval``, one step for ``train``, one micro-batch for ``train_cli``,
 ``train_v1``, ``train_single``, ``train_nccl`` and ``train_fsdp``, one
 rank's micro-batch for ``train_dp``, the
@@ -177,8 +188,10 @@ cards by NCCL against one card) and prints their numbers as a JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import os
 import random
 import re
 import statistics
@@ -201,6 +214,24 @@ K3_REL = 1e-2
 # differs in summation order only
 K2B_REL = {"bfloat16": 3e-2, "float32": 1e-4}
 K4_REL = 2e-5  # fp32 sums of up to 6912 terms in another order (and fma), relative to max |F|
+# the sorted truncated-align forms (phase_align_forms): each form's chosen
+# index must attain K4's minimum within K4_REL x max |F|; prefix's also
+# within its fp32 cancellation error, PREFIX_CANCEL x max |A| x sum w|x| of
+# the row (the bound of the JAX package's own form tests)
+PREFIX_CANCEL = 4e-7
+ALIGN_BITONIC_MAX = 2048  # the bitonic network timed on the events sort where 3L <= 2048: patch_16 and patch_64
+ALIGN_TIMES = 5           # CUDA-event times per form and shape (their median)
+BITONIC_TIMES = 3         # CUDA-event times of each sort of the events keys (their median)
+ALIGN_STEP_TIMES = 3      # host-clock times of the grad step per form, after its checked call (their median)
+# the events and prefix grad steps against the dense one. Each of their scale/
+# shift solves is held to K4's minimum of that solve's objective as above
+# (the solve's own inputs, every (anchor, candidate) pair of a row). The loss
+# and the gradient norm, relative, only to a sanity bound: a row whose
+# minimum is tied (a patch with every term truncated: any scale attains n t)
+# or tied within the forms' fp32 rounding lets each form choose another
+# (scale, shift) of equal objective, and the patch's loss follows that choice
+# (an H100 read 4.3e-3 and 3.1e-3 for events against dense)
+ALIGN_STEP_RTOL = 2e-2
 # the probes T1-T6 are held to their tools' REL_TOL, relative to max |plain|
 PROBE_KERNELS = ("exp_flash_softmax", "exp_vpu_ceiling", "exp_dense_v1", "exp_dense_v1_unroll", "exp_dense_v2",
                  "exp_dense_bf16")
@@ -951,6 +982,302 @@ def phase_kernels_train():
         del A, wx, wy
     torch.cuda.synchronize()
     return results
+
+
+@contextlib.contextmanager
+def align_form(impl: str):
+    """Select a truncated-align form for the ``with`` block: set
+    ``MOGE_ALIGN_TRUNC_IMPL``, restore it after."""
+    saved = os.environ.get("MOGE_ALIGN_TRUNC_IMPL")
+    os.environ["MOGE_ALIGN_TRUNC_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MOGE_ALIGN_TRUNC_IMPL", None)
+        else:
+            os.environ["MOGE_ALIGN_TRUNC_IMPL"] = saved
+
+
+def align_problem(gen, rows: int, length: int, dev):
+    """A seeded truncated-align problem (rows, length) with the losses'
+    structure: x mostly positive (a tenth negated, |x| >= 0.1), y near 1.3 x,
+    a fifth of the weights 0, and ties at breakpoints (terms 1-7 of each row
+    repeat term 0, so eight candidates are equal)."""
+    import torch
+
+    def uniform():
+        return torch.rand(rows, length, generator=gen, device=dev)
+
+    x = 2 * uniform() + 0.1
+    x = torch.where(uniform() < 0.1, -x, x)
+    y = 1.3 * x + 0.2 * torch.randn(rows, length, generator=gen, device=dev)
+    w = uniform() * (uniform() > 0.2)
+    x[:, 1:8], y[:, 1:8] = x[:, :1], y[:, :1]
+    return x, y, w
+
+
+def expected_align_launches() -> dict:
+    """Kernel launches of one dense solve at one shape: one K4."""
+    return {name: int(name == "dense_align") for name, _, _ in KERNELS}
+
+
+def anchor_solve_excess(inputs, anchor, idx2, prefix: bool) -> tuple:
+    """How far a scale/shift anchor solve's choice (``anchor``, ``idx2`` per
+    row) lies above K4's minimum of the solve's objective over every (anchor
+    with weight > 0, candidate) pair of its row, in units of the tolerance:
+    K4_REL x the row's largest |F|, for prefix plus its cancellation error at
+    the chosen anchor and at K4's best one. ``inputs``: the solve's (src,
+    tgt, w, trunc, z_only). Returns (largest excess over the rows, rows)."""
+    import torch
+
+    from moge_tpu_torch.ops import alignment
+
+    src, tgt, w, trunc, z_only = inputs
+    p, n, _ = src.shape
+    with torch.no_grad():
+        mask = torch.tensor([0.0, 0.0, 1.0] if z_only else [1.0, 1.0, 1.0], device=src.device)
+        x = (src[:, None] - (src * mask)[:, :, None]).reshape(p * n, 3 * n)  # row r, anchor a: src_r - src_a
+        y = (tgt[:, None] - (tgt * mask)[:, :, None]).reshape(p * n, 3 * n)
+        ww = w[:, None, :, None].expand(p, n, n, 3).reshape(p * n, 3 * n)
+        xs, ys = x.abs(), y * torch.sign(x)
+        A = ys / xs.clamp_min(1e-7)
+        F = alignment.dense_objective(A, ww * xs, ww * ys, float(trunc)).reshape(p, n, 3 * n)
+        cancel = (A.abs().amax(-1) * (ww * xs).sum(-1)).reshape(p, n)
+        F = torch.where(w[:, :, None] > 0, F, torch.inf).reshape(p, -1)
+        best = F.argmin(-1)
+        f_min = F.gather(1, best[:, None])[:, 0]
+        rows = torch.arange(p, device=src.device)
+        picked = F[rows, anchor * 3 * n + idx2]
+        tol = K4_REL * torch.where(F.isfinite(), F.abs(), 0.0).amax(-1)
+        if prefix:
+            tol = tol + PREFIX_CANCEL * (cancel[rows, anchor] + cancel[rows, best // (3 * n)])
+        valid = f_min.isfinite()
+        excess = torch.where(valid, (picked - f_min) / tol.clamp_min(1e-30), 0.0)
+    return excess.max().item(), int(valid.sum())
+
+
+def events_sort_inputs(x, y, w, trunc: float):
+    """The events form's sort of an ``align`` problem with a scalar trunc:
+    the keys (B, A, C) of its 3n breakpoint events and their payloads (the
+    slope, intercept and count deltas, the candidate index), built as
+    ``alignment._align_trunc_events`` builds them."""
+    import torch
+
+    n = x.shape[-1]
+    sign = torch.sign(x)
+    xs, ys = x * sign, y * sign
+    wx, wy = w * xs, w * ys
+    A = ys / xs.clamp_min(1e-7)
+    B, C = (wy - trunc) / wx.clamp_min(1e-7), (wy + trunc) / wx.clamp_min(1e-7)
+    one, zero = torch.ones_like(wx), torch.zeros_like(wx)
+    idx = torch.full((3 * n,), n, dtype=torch.int32, device=x.device)
+    idx[n:2 * n] = torch.arange(n, dtype=torch.int32, device=x.device)
+    payloads = [torch.cat([-wx, 2 * wx, -wx], -1), torch.cat([wy, -2 * wy, wy], -1), torch.cat([-one, zero, one], -1),
+                idx.expand(x.shape[0], 3 * n)]
+    return torch.cat([B, A, C], -1), payloads
+
+
+def phase_align_forms(card: str):
+    """The truncated align's three forms on the card at the four v2 loss
+    shapes (label type A, batch 2): dense on K4, events and prefix, each
+    through ``alignment.align`` at full rows, with scalar truncation and, at
+    patch_16, a per-element one. Each sorted form's chosen index must attain
+    K4's minimum (K4's objective at the returned index against its row
+    minimum, within the row's tolerance), and its ``a`` equal dense's
+    wherever the two chose one index; median of ALIGN_TIMES CUDA-event times
+    and peak memory per form and shape. Where 3L <= ALIGN_BITONIC_MAX, the
+    events sort of the same problem by the bitonic network
+    (``ops/bitonic.py``, which no path of the port calls) and by
+    ``alignment.sort_stable``: bit for bit, median of BITONIC_TIMES each and
+    the network's peak. Then the v2 grad step (type A, batch 2 at 512^2,
+    TRAIN_TOKENS[0]) from one state, batch and generator under dense, events
+    and prefix: loss and gradient norm against the dense step's, launches
+    per step (the sorted steps launch no K4, the rest as the dense step),
+    each sorted step's scale/shift solves against K4's minimum, and the
+    median of ALIGN_STEP_TIMES more steps per form (dense's gradient norms
+    over its repeats give the card's own spread)."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.v2 import MoGeV2
+    from moge_tpu_torch.ops import alignment, bitonic
+    from moge_tpu_torch.train.step import make_grad_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    names = [n for n, spec in cfg["loss"]["A"].items() if spec["function"].startswith("affine_invariant_")]
+    shapes = loss_solve_shapes(cfg["loss"]["A"], 2)
+    cases = [(n, length, rows, False) for n, (length, rows) in zip(names, shapes)]
+    cases += [(n, length, rows, True) for n, (length, rows) in zip(names, shapes) if n == "patch_16"]
+    expect = expected_align_launches()
+    table, dense_runs = [], 0
+    for name, length, rows, per_elem in cases:
+        x, y, w = align_problem(gen, rows, length, dev)
+        trunc = 0.5 + torch.rand(rows, length, generator=gen, device=dev) if per_elem else 1.0
+        with torch.no_grad():
+            sign = torch.sign(x)
+            xs, ys = x * sign, y * sign
+            A, wx, wy = ys / xs.clamp_min(1e-7), w * xs, w * ys
+            F = alignment.dense_objective(A, wx, wy, trunc)  # K4's objective at every candidate
+            f_min = F.amin(-1)
+            cancel = A.abs().amax(-1) * (w * x.abs()).sum(-1)
+            row_tol = K4_REL * F.abs().amax(-1)
+        row = {"loss": name, "L": length, "rows": rows, "trunc": "per_element" if per_elem else 1.0, "forms": {}}
+        for label in ("dense", "events", "prefix"):
+            with align_form(label):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                reset_counts()
+                a, loss, idx = alignment.align(x, y, w, trunc)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                peak_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+                ms = cuda_ms(lambda: alignment.align(x, y, w, trunc), ALIGN_TIMES, 1)
+            if label == "dense":
+                if counts != expect:
+                    raise AssertionError(f"align_forms {name}: dense launches {counts}, expected {expect}")
+                check_variants("align_forms", f"align_forms {name}", counts)
+                dense_runs += 1
+                a_dense, idx_dense = a, idx
+            elif any(counts.values()):
+                raise AssertionError(f"align_forms {name}: {label} launched kernels {counts}")
+            tol = row_tol + (PREFIX_CANCEL * cancel if label == "prefix" else 0.0)
+            picked = F.gather(1, idx[:, None])[:, 0]
+            excess = ((picked - f_min) / tol).max().item()  # <= 1: the index attains K4's minimum
+            loss_excess = ((loss - picked).abs() / tol).max().item()
+            same = idx == idx_dense
+            a_ok = torch.equal(a[same], a_dense[same])
+            other = int((~same).sum())
+            row["forms"][label] = {"ms": ms, "peak_gib": peak_gib, "min_excess": excess, "loss_excess": loss_excess,
+                                   "chosen_otherwise": other}
+            log(f"[align_forms] {name} L={length} rows={rows} trunc {row['trunc']}: {label} {ms:.3f} ms, peak "
+                f"{peak_gib:.3f} GiB, objective at its index within {excess:.3f} of the tolerance of K4's minimum, "
+                f"its loss within {loss_excess:.3f}, {other} rows chose another index than dense, a as dense's "
+                f"on the rest {a_ok}; {counts['dense_align']} K4 launches, {sum(counts.values())} in all ({card})")
+            if not (excess <= 1 and loss_excess <= 1 and a_ok):
+                raise AssertionError(f"align_forms {name} {label}: index off K4's minimum by {excess} of the "
+                                     f"tolerance, loss by {loss_excess}, a as dense's where the index is {a_ok}")
+            del a, loss, idx, picked, same
+        del a_dense, idx_dense
+        if 3 * length <= ALIGN_BITONIC_MAX and not per_elem:  # the network against torch.sort on the events sort
+            with torch.no_grad():
+                keys, payloads = events_sort_inputs(x, y, w, trunc)
+                want = alignment.sort_stable(keys, payloads)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                got = bitonic.sort_with_payloads(keys, payloads)
+                torch.cuda.synchronize()
+                peak_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+                equal = all(torch.equal(g, v) for g, v in zip(got, want))
+                del got, want
+                net_ms = cuda_ms(lambda: bitonic.sort_with_payloads(keys, payloads), BITONIC_TIMES, 0)
+                sort_ms = cuda_ms(lambda: alignment.sort_stable(keys, payloads), BITONIC_TIMES, 1)
+            row["bitonic"] = {"keys": keys.shape[-1], "ms": net_ms, "sort_stable_ms": sort_ms, "peak_gib": peak_gib}
+            log(f"[align_forms] {name} events sort of {rows} rows x {keys.shape[-1]} keys, {len(payloads)} payloads: "
+                f"bitonic network {net_ms:.3f} ms, peak {peak_gib:.3f} GiB; sort_stable (torch.sort) {sort_ms:.3f} ms; "
+                f"bit for bit {equal} ({card})")
+            if not equal:
+                raise AssertionError(f"align_forms {name}: the bitonic network's sort differs from torch.sort's")
+            del keys, payloads
+        table.append(row)
+        del x, y, w, trunc, sign, xs, ys, A, wx, wy, F, f_min, cancel, row_tol
+        torch.cuda.empty_cache()
+
+    # the v2 grad step under each form, from one state, batch and generator
+    label_types = list(cfg["loss"])
+    with torch.device(dev):
+        module = MoGeV2(**cfg["model"]).init_random(seed=SEED)
+    batch = train_batch(np.random.default_rng(SEED + 2), 2, TRAIN_HW, label_types.index("A"), dev)
+    grad_step = make_grad_step(module, cfg["loss"], label_types, TRAIN_TOKENS[0], torch.bfloat16)
+    expect_step = expected_train_launches(cfg["model"], cfg["loss"])
+    steps, step_counts, choices = {}, {}, {}
+    recorded, original = [], alignment._align_points_scale_shift
+
+    def record(src, tgt, w, trunc, z_only):  # each scale/shift solve's inputs
+        recorded.append((src.detach(), tgt.detach(), w.detach(), trunc, z_only))
+        return original(src, tgt, w, trunc, z_only)
+
+    def run_step():
+        """One grad step: (ms by the host clock, gradients, metrics)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, metrics = grad_step(batch, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, grads, metrics
+
+    def grad_norm(grads):
+        return torch.sqrt(sum(g.float().square().sum() for g in grads.values())).item()
+
+    for label in ("dense", "events", "prefix"):
+        recorded.clear()
+        alignment.SOLVES, alignment._align_points_scale_shift = [], record
+        try:
+            with align_form(label):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts()
+                first_ms, grads, metrics = run_step()
+                counts = read_counts()
+            choices[label] = [(inputs, rec[2], rec[3]) for inputs, rec in zip(recorded, alignment.SOLVES)]
+        finally:
+            alignment.SOLVES, alignment._align_points_scale_shift = None, original
+        want = dict(expect_step, dense_align=expect_step["dense_align"] if label == "dense" else 0)
+        if counts != want:
+            raise AssertionError(f"align_forms {label} grad step launches {counts}, expected {want}")
+        if label != "dense":
+            check_variants(f"train_{label}", f"{label} grad step", counts)
+            step_counts[f"train_{label}"] = (counts, 1)
+        steps[label] = {"first_ms": first_ms, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                        "loss": float(metrics["total"]), "grad_norm": grad_norm(grads),
+                        **{k: float(metrics[k]) for k in names}}
+        del grads, metrics
+        repeats, norms = [], []
+        with align_form(label):
+            for _ in range(ALIGN_STEP_TIMES):
+                ms, grads, _ = run_step()
+                repeats.append(ms)
+                norms.append(grad_norm(grads))
+                del grads
+        steps[label].update(ms=statistics.median(repeats), repeat_ms=repeats,
+                            repeat_grad_norm_rel=max(abs(v - steps[label]["grad_norm"]) for v in norms)
+                            / steps[label]["grad_norm"])
+        if label != "dense":  # each solve's choice against K4's minimum of its objective
+            solves = []
+            for (inputs, anchor, idx2), (_, d_anchor, d_idx2) in zip(choices[label], choices["dense"]):
+                excess, rows = anchor_solve_excess(inputs, anchor, idx2, label == "prefix")
+                other = int(((anchor != d_anchor) | (idx2 != d_idx2)).sum())
+                solves.append({"rows": rows, "chosen_otherwise": other, "min_excess": excess})
+                if not excess <= 1:
+                    raise AssertionError(f"align_forms {label} grad step: a solve of {rows} rows chose off K4's "
+                                         f"minimum by {excess} of the tolerance")
+            steps[label]["solves"] = solves
+            log(f"[align_forms] grad step {label}: per scale/shift solve, rows / chosen otherwise than dense / "
+                f"objective at the choice within ... of the tolerance of K4's minimum: "
+                + "; ".join(f"{v['rows']} / {v['chosen_otherwise']} / {v['min_excess']:.3f}" for v in solves))
+    ref = steps["dense"]
+    for label, st in steps.items():
+        st["loss_rel"] = abs(st["loss"] - ref["loss"]) / abs(ref["loss"])
+        st["grad_norm_rel"] = abs(st["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        log(f"[align_forms] grad step {label}: total {st['loss']:.7f} (relative {st['loss_rel']:.3e}), gradient "
+            f"norm {st['grad_norm']:.6e} (relative {st['grad_norm_rel']:.3e}; tol {ALIGN_STEP_RTOL}; its own "
+            f"repeats within {st['repeat_grad_norm_rel']:.3e}), " + ", ".join(f"{k} {st[k]:.6f}" for k in names)
+            + f"; first call {st['first_ms']:.1f} ms, then median {st['ms']:.1f} ms of "
+            + " / ".join(f"{v:.1f}" for v in st["repeat_ms"]) + f", peak {st['peak_gib']:.2f} GiB ({card})")
+        if not (st["loss_rel"] <= ALIGN_STEP_RTOL and st["grad_norm_rel"] <= ALIGN_STEP_RTOL):
+            raise AssertionError(f"align_forms {label} grad step off the dense one: loss {st['loss_rel']}, "
+                                 f"gradient norm {st['grad_norm_rel']} > {ALIGN_STEP_RTOL}")
+    del module, batch, grad_step, choices, recorded
+    torch.cuda.empty_cache()
+    stats = {"solves": table, "grad_steps": steps, "chunk_elems": alignment._SORTED_ELEMS,
+             "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"align_forms": stats}), flush=True)
+    log(f"[align_forms] phase {stats['seconds']:.1f} s")
+    return {"align_forms": (expect, dense_runs), **step_counts}, stats
 
 
 def phase_probes(card: str):
@@ -3504,6 +3831,9 @@ def main(argv=None) -> int:
     # each path is driven with the counters set to 0 just before each of its
     # runs and read just after; every run of a path launches the same counts
     launches = {}  # path -> (launches per run, runs)
+    align_launches, align_stats = phase_align_forms(card)
+    launches.update(align_launches)
+    torch.cuda.empty_cache()
     probe_results, launches["probes"], probe_tables = phase_probes(card)
     kernel_results.update(probe_results)
     seq, launches["infer"], latencies = phase_slice(card)
@@ -3554,7 +3884,7 @@ def main(argv=None) -> int:
                       "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
                       "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
                       "train_v1": train_v1_stats, "parallel": parallel_stats, "giant": giant_stats,
-                      "probes": probe_tables}))
+                      "probes": probe_tables, "align_forms": align_stats}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

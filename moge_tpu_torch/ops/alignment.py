@@ -4,12 +4,29 @@ The solvers behind MoGe's affine-invariant losses:
 
 * ``align`` without truncation: the exact minimizer of sum_i w_i |a x_i - y_i|
   by the sorted-derivative zero crossing.
-* ``align`` with truncation: the minimizer of sum_i min(t, w_i |a x_i - y_i|),
-  found by evaluating the objective densely at every breakpoint a = y_j/x_j
-  (``dense_objective``) and taking the first argmin. On CUDA tensors the
-  dense objective is kernel K4 (``csrc/dense_align.cu``) at every length;
-  on CPU tensors it is ``dense_objective_plain``, the chunked broadcast form
-  of the JAX package. The sorted ``events``/``prefix`` forms are not ported.
+* ``align`` with truncation: the minimizer of sum_i min(t, w_i |a x_i - y_i|)
+  over the breakpoints a = y_j/x_j, in one of three forms chosen as the JAX
+  package chooses them, by ``MOGE_ALIGN_TRUNC_IMPL`` read on every call:
+
+  - ``auto`` or ``dense`` (the default): the objective evaluated densely at
+    every breakpoint (``dense_objective``), then the first argmin. On CUDA
+    tensors the dense objective is kernel K4 (``csrc/dense_align.cu``) at
+    every length; on CPU tensors it is ``dense_objective_plain``, the
+    chunked broadcast form of the JAX package.
+  - ``events``: one stable sort of the 3n breakpoint events (B_i, A_i, C_i)
+    with their slope/intercept deltas as payloads, prefix sums, and the
+    objective read at the end of each run of equal candidates. The sort is
+    ``torch.sort`` in ``lax.sort``'s order (``sort_stable``). The JAX package
+    can sort by its bitonic network instead (``MOGE_BITONIC_MAX``); the port
+    does not read that variable: on finite keys the network
+    (``ops/bitonic.py``) gives the stable sort's permutation, so the result
+    is the same.
+  - ``prefix``: the closed form over three sorted orders (A, B, C), their
+    prefix sums and six searches per candidate.
+
+  Any other value raises. The sorted forms run in plain PyTorch on the
+  tensors' device; ``events`` breaks ties in sorted-value order, ``dense``
+  and ``prefix`` in original-index order, as in the JAX package.
 * the anchor-enumerating solvers (``align_depth_affine``,
   ``align_points_scale_z_shift``, ``align_points_scale_xyz_shift``), which
   solve one ``align`` per (row, anchor) pair in flat chunks and take the
@@ -23,15 +40,17 @@ package and the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import os
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
 from . import _build
 
-__all__ = ["align", "dense_objective", "dense_objective_plain", "align_depth_scale", "align_depth_affine",
-           "align_points_scale", "align_points_scale_z_shift", "align_points_scale_xyz_shift",
+__all__ = ["align", "dense_objective", "dense_objective_plain", "sort_stable", "align_depth_scale",
+           "align_depth_affine", "align_points_scale", "align_points_scale_z_shift", "align_points_scale_xyz_shift",
            "align_points_z_shift", "align_points_xyz_shift", "align_affine_lstsq", "LAUNCHES", "SOLVES"]
 
 LAUNCHES = 0  # K4 launches made by dense_objective (never by the plain version)
@@ -43,6 +62,7 @@ Trunc = Union[float, torch.Tensor]
 
 _PLAIN_ELEMS = 1 << 25   # broadcast elements per chunk of the plain dense objective
 _ANCHOR_ELEMS = 1 << 22  # elements per problem tensor per chunk of the CPU anchor solve
+_SORTED_ELEMS = 1 << 24  # elements per problem tensor per chunk of a sorted form's anchor solve on the card
 
 
 def dense_objective_plain(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t: Trunc) -> torch.Tensor:
@@ -57,6 +77,17 @@ def dense_objective_plain(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t
         v = (A[:, s:s + cb, None] * wx[:, None, :] - wy[:, None, :]).abs()
         parts.append((torch.minimum(t[:, None, :], v) if per_term else v.clamp_max(t)).sum(-1))
     return torch.cat(parts, dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """K4's library and its entry point, typed once."""
+    lib = _build.load("dense_align")
+    fn = lib.moge_dense_objective
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def dense_objective(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t: Trunc) -> torch.Tensor:
@@ -78,14 +109,9 @@ def dense_objective(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t: Trun
     F = torch.empty_like(A)
     if F.numel() == 0:
         return F
-    lib = _build.load("dense_align")
-    fn = lib.moge_dense_objective
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(A.device):  # launch on the tensors' card
-        rc = fn(A.data_ptr(), wx.data_ptr(), wy.data_ptr(), t.data_ptr() if per_term else None,
-                0.0 if per_term else float(t), F.data_ptr(), R, L, _build.stream_ptr(A))
+    lib, fn = _kernel()
+    rc = _build.call_on(A.device, fn, A.data_ptr(), wx.data_ptr(), wy.data_ptr(), t.data_ptr() if per_term else None,
+                        0.0 if per_term else float(t), F.data_ptr(), R, L)
     _build.check(lib, rc, "dense_objective")
     LAUNCHES += 1
     return F
@@ -120,6 +146,125 @@ def _align_trunc_dense(xs, ys, w, trunc: Trunc, eps: float):
     return a, loss.reshape(batch_shape), index
 
 
+def _trunc_form() -> str:
+    """The truncated form ``MOGE_ALIGN_TRUNC_IMPL`` selects, as the JAX
+    package reads it: ``dense`` (also for ``auto``), ``events`` or ``prefix``."""
+    impl = os.environ.get("MOGE_ALIGN_TRUNC_IMPL", "auto")
+    if impl == "auto":
+        return "dense"
+    if impl not in ("dense", "events", "prefix"):
+        raise ValueError(f"MOGE_ALIGN_TRUNC_IMPL={impl!r} — expected 'auto', 'dense', 'events' or 'prefix'")
+    return impl
+
+
+def _sort_key(v: torch.Tensor) -> torch.Tensor:
+    """``v`` with -0.0 made 0.0 and every NaN the positive NaN, so that
+    ``torch.sort`` orders the keys as ``lax.sort`` compares them (-0.0 equal
+    to 0.0, NaN after +inf) on either device, whatever its backend makes of
+    the sign bit of a zero or a NaN."""
+    v = torch.where(v == 0, 0.0, v)
+    return torch.where(v.isnan(), torch.nan, v)
+
+
+def sort_stable(keys: torch.Tensor, payloads: List[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """``(keys, *payloads)`` sorted by ``keys`` along the last axis, stably, by
+    ``torch.sort`` with each payload gathered through its permutation: the
+    events form's ``lax.sort(..., is_stable=True, num_keys=1)``."""
+    keys_s, perm = torch.sort(_sort_key(keys), dim=-1, stable=True)
+    return (keys_s, *(torch.take_along_dim(p, perm, dim=-1) for p in payloads))
+
+
+def _align_trunc_events(xs, ys, wx, wy, A, B, C, trunc: Trunc, eps: float):
+    """Truncated exact-L1 align by one stable sort of breakpoint events.
+
+    Term i, min(t, w_i |a x_i - y_i|), is t for a <= B_i, wy_i - a wx_i on
+    [B_i, A_i], a wx_i - wy_i on [A_i, C_i] and t for a >= C_i, so
+    F(a) = t K(a) + a S(a) + T(a), with K, S, T prefix sums over the
+    value-sorted events of the deltas (dK, dS, dT): B_i (-1, -wx_i, +wy_i),
+    A_i (0, +2wx_i, -2wy_i), C_i (+1, -wx_i, +wy_i); K(-inf) = n, and with a
+    per-element t the count K becomes a t-weighted prefix (one more
+    payload). A stable sort of concat([B, A, C]) breaks ties B < A < C,
+    which gives the reference's side conventions; each A event reads the
+    prefix at the end of its run of equal values."""
+    n = xs.shape[-1]
+    dev = xs.device
+    per_elem = isinstance(trunc, torch.Tensor) and trunc.dim() > 0
+    with torch.no_grad():
+        vals = torch.cat([B, A, C], dim=-1)
+        one = torch.ones_like(wx)
+        payloads = [torch.cat([-wx, 2 * wx, -wx], dim=-1), torch.cat([wy, -2 * wy, wy], dim=-1),
+                    torch.cat([-one, torch.zeros_like(wx), one], dim=-1)]
+        idx = torch.full((3 * n,), n, dtype=torch.int32, device=dev)
+        idx[n:2 * n] = torch.arange(n, dtype=torch.int32, device=dev)
+        payloads.append(idx.expand(vals.shape))
+        if per_elem:
+            t_full = torch.broadcast_to(trunc, xs.shape)
+            payloads.append(torch.cat([-t_full, torch.zeros_like(t_full), t_full], dim=-1))
+        vals_s, d_s, d_t, d_k, idx_s, *d_tr = sort_stable(vals, payloads)
+        del vals, payloads  # the unsorted copies, before the prefix sums (peak memory)
+
+        if per_elem:
+            trunc_term = t_full.sum(-1, keepdim=True) + d_tr[0].cumsum(-1)
+        else:
+            trunc_term = trunc * (n + d_k.cumsum(-1))
+        f_all = trunc_term + vals_s * d_s.cumsum(-1) + d_t.cumsum(-1)
+        del trunc_term, d_s, d_t, d_k, d_tr
+
+        is_a = idx_s < n
+        # a run of equal A values ends at its last A event (C events of the
+        # same value sort after every A, so equal A's are contiguous)
+        nxt_same = torch.cat([is_a[..., 1:] & (vals_s[..., 1:] == vals_s[..., :-1]),
+                              torch.zeros_like(is_a[..., :1])], dim=-1)
+        pos = torch.arange(3 * n, device=dev)
+        run_end = torch.where(is_a & ~nxt_same, pos, 3 * n - 1)
+        end_pos = run_end.flip(-1).cummin(-1).values.flip(-1)  # reverse cummin
+        f_masked = torch.where(is_a, torch.take_along_dim(f_all, end_pos, dim=-1), torch.inf)
+        best = f_masked.argmin(-1)  # the first sorted position: the first original index in a run
+        loss = _take(f_masked, best)
+        index = _take(idx_s, best).long()
+    a = _take(ys, index) / _take(xs, index).clamp_min(eps)
+    return a, loss, index
+
+
+def _align_trunc_prefix(xs, ys, wx, wy, A, B, C, trunc: Trunc, eps: float):
+    """Truncated exact-L1 align by the closed form: F at every candidate A_j
+    from the prefix sums of wx and wy in A, B and C order and the counts of
+    A (<= A_j), B (<= A_j) and C (< A_j), found by ``torch.searchsorted``.
+    F is a difference of A x prefix terms, so a near-flat row carries fp32
+    cancellation error of order eps_32 max|A| sum w|x|."""
+    n = xs.shape[-1]
+    per_elem = isinstance(trunc, torch.Tensor) and trunc.dim() > 0
+    with torch.no_grad():
+        (a_sorted, order_a), (b_sorted, order_b), (c_sorted, order_c) = (
+            torch.sort(_sort_key(v), dim=-1, stable=True) for v in (A, B, C))
+
+        def prefix(v, order):
+            cs = torch.take_along_dim(v, order, dim=-1).cumsum(-1)
+            return torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)  # (..., n + 1)
+
+        query = A.contiguous()
+        n_a = torch.searchsorted(a_sorted, query, right=True)   # elements <= A_j
+        n_b = torch.searchsorted(b_sorted, query, right=True)
+        n_c = torch.searchsorted(c_sorted, query, right=False)  # elements < A_j
+        g = functools.partial(torch.take_along_dim, dim=-1)
+        swx_a, swy_a = g(prefix(wx, order_a), n_a), g(prefix(wy, order_a), n_a)
+        swx_b, swy_b = g(prefix(wx, order_b), n_b), g(prefix(wy, order_b), n_b)
+        swx_c, swy_c = g(prefix(wx, order_c), n_c), g(prefix(wy, order_c), n_c)
+        if per_elem:
+            # the flat-region total: every t_i, less those whose window has
+            # begun (B_i <= a), plus those whose window has ended (C_i < a)
+            t_full = torch.broadcast_to(trunc, wx.shape)
+            pt_b, pt_c = prefix(t_full, order_b), prefix(t_full, order_c)
+            trunc_term = t_full.sum(-1, keepdim=True) - g(pt_b, n_b) + g(pt_c, n_c)
+        else:
+            trunc_term = trunc * ((n - n_b) + n_c)
+        F = trunc_term + A * (swx_a - swx_c) - (swy_a - swy_c) + (swy_b - swy_a) - A * (swx_b - swx_a)
+        index = F.argmin(-1)
+        loss = _take(F, index)
+    a = _take(ys, index) / _take(xs, index).clamp_min(eps)
+    return a, loss, index
+
+
 def align(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, trunc: Optional[Trunc] = None,
           eps: float = 1e-7) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Solve min_a sum_i w_i |a x_i - y_i| (``trunc`` None) or
@@ -145,21 +290,48 @@ def align(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, trunc: Optional[Tru
             loss = (w * (a[..., None] * x - y).abs()).sum(-1)
         return a, loss, index
 
-    return _align_trunc_dense(xs, ys, w, trunc, eps)
+    form = _trunc_form()
+    if form == "dense":
+        return _align_trunc_dense(xs, ys, w, trunc, eps)
+    with torch.no_grad():
+        # trunc in the inputs' dtype, as the JAX package takes it; a float
+        # stays a Python number (no copy to the card, no sync)
+        t = trunc.to(xs.dtype) if isinstance(trunc, torch.Tensor) else float(trunc)
+        wx, wy = w * xs, w * ys
+        A = ys / xs.clamp_min(eps)
+        B = (wy - t) / wx.clamp_min(eps)
+        C = (wy + t) / wx.clamp_min(eps)
+    if form == "events":
+        return _align_trunc_events(xs, ys, wx, wy, A, B, C, t, eps)
+    return _align_trunc_prefix(xs, ys, wx, wy, A, B, C, t, eps)
+
+
+def _chunk_pairs(total: int, length: int, trunc, device: torch.device) -> int:
+    """(row, anchor) pairs per chunk of an anchor solve of ``total`` problems
+    of size ``length``. On the card the dense form takes every pair in one
+    chunk (one K4 launch per solve, about 8 (pairs, length) fp32 arrays of
+    device memory) and the sorted forms ``_SORTED_ELEMS`` elements per
+    problem tensor (they hold tens of such arrays: sort keys, payloads,
+    permutations, prefix sums); on the CPU ``_ANCHOR_ELEMS`` elements bound
+    the memory. At least 128 pairs, at most ``total``."""
+    if device.type != "cuda":
+        elems = _ANCHOR_ELEMS
+    elif trunc is not None and _trunc_form() != "dense":
+        elems = _SORTED_ELEMS
+    else:
+        elems = total * max(length, 1)
+    return int(min(total, max(128, elems // max(length, 1))))
 
 
 def _flat_anchor_align(n_rows: int, n_anchors: int, length: int, make_chunk: Callable, trunc,
                        device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solve the n_rows * n_anchors independent ``align`` problems of size
-    ``length`` in flat chunks over (row, anchor) pairs, without autograd.
-    ``make_chunk(row_idx, anchor_idx)`` builds the (M, length) problem
-    tensors. On the card everything is one chunk (one K4 launch per solve,
-    about 8 (pairs, length) fp32 arrays of device memory); on the CPU chunks
-    of ``_ANCHOR_ELEMS`` elements bound the memory. Returns per-pair
-    ``(loss, index)``, each (n_rows, n_anchors)."""
+    ``length`` in flat chunks of ``_chunk_pairs`` (row, anchor) pairs, without
+    autograd. ``make_chunk(row_idx, anchor_idx)`` builds the (M, length)
+    problem tensors. Returns per-pair ``(loss, index)``, each (n_rows,
+    n_anchors)."""
     total = n_rows * n_anchors
-    elems = total * max(length, 1) if device.type == "cuda" else _ANCHOR_ELEMS
-    m = int(min(total, max(128, elems // max(length, 1))))
+    m = _chunk_pairs(total, length, trunc, device)
     losses, indices = [], []
     with torch.no_grad():
         for start in range(0, total, m):

@@ -15,6 +15,7 @@ replace it to feed both packages the same draws.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -78,7 +79,8 @@ def affine_invariant_global_loss(pred_points: torch.Tensor, gt_points: torch.Ten
 
 
 def compute_anchor_sampling_weight(gen: torch.Generator, points: torch.Tensor, mask: torch.Tensor, radius_2d: int,
-                                   radius_3d: torch.Tensor, num_test: int = 64, form: str = "shift") -> torch.Tensor:
+                                   radius_3d: torch.Tensor, num_test: int = 64,
+                                   form: Optional[str] = None) -> torch.Tensor:
     """Importance weights balancing fine structures: a Monte-Carlo estimate of
     each pixel's local 3D-neighbour density from ``num_test`` offsets in the
     ``radius_2d`` box; weight = 1 / count, normalised per image.
@@ -86,7 +88,11 @@ def compute_anchor_sampling_weight(gen: torch.Generator, points: torch.Tensor, m
     ``form='shift'`` (the JAX package's default) draws each offset once and
     applies it to every pixel (one shifted slice per test); ``form='gather'``
     draws an independent offset per (pixel, test), as the reference does.
-    Both give every pixel the same marginal distribution."""
+    Both give every pixel the same marginal distribution. With no ``form``,
+    ``MOGE_ANCHOR_WEIGHT_IMPL`` chooses as in the JAX package: ``gather``
+    selects the gather form, anything else the shift form."""
+    if form is None:
+        form = "gather" if os.environ.get("MOGE_ANCHOR_WEIGHT_IMPL", "shift") == "gather" else "shift"
     if form == "gather":
         return _anchor_sampling_weight_gather(gen, points, mask, radius_2d, radius_3d, num_test)
     if form != "shift":
@@ -131,7 +137,7 @@ def _anchor_sampling_weight_gather(gen, points, mask, radius_2d, radius_3d, num_
 
 def local_loss_prepare(gen: torch.Generator, pred_points: torch.Tensor, gt_points: torch.Tensor,
                        focal: torch.Tensor, level: int, align_resolution: int = 32, num_patches: int = 16,
-                       anchor_weight_form: str = "shift"):
+                       anchor_weight_form: Optional[str] = None):
     """Patch sampling and extraction, and the low-resolution solver inputs of
     the local loss. Returns ``((src (P, R*R, 3), tgt (P, R*R, 3), w (P, R*R)),
     ctx)``; ``ctx`` carries the full-resolution patches for
@@ -223,7 +229,7 @@ def affine_invariant_local_loss(gen: torch.Generator, pred_points: torch.Tensor,
                                 focal: torch.Tensor, global_scale: Optional[torch.Tensor], level: int,
                                 align_resolution: int = 32, num_patches: int = 16, beta: float = 0.0,
                                 trunc: float = 1.0, sparsity_aware: bool = False,
-                                anchor_weight_form: str = "shift") -> Tuple[torch.Tensor, Metrics]:
+                                anchor_weight_form: Optional[str] = None) -> Tuple[torch.Tensor, Metrics]:
     """Prepare -> scale/xyz-shift solve -> finish. Returns (loss (B,), metrics)."""
     (src, tgt, w_lr), ctx = local_loss_prepare(gen, pred_points, gt_points, focal, level, align_resolution,
                                                num_patches, anchor_weight_form)

@@ -3,7 +3,9 @@ K3-grouped) on the card against their plain versions, in fp32 and bf16, at
 small ragged shapes and at the main path's K3 shapes (one case per copy
 variant, counted), and the tiny MoGe-2 decode (sequential and batched
 heads), the tiny MoGe-1 forward and the MoGe-2 gradient on the card against
-the CPU, and the ported TPU probes T1-T6 against their plain versions. Needs
+the CPU, the sorted truncated-align forms and the bitonic network on the
+card against the CPU and the stable sort, and the ported TPU probes T1-T6
+against their plain versions. Needs
 a CUDA GPU and
 nvcc (the kernels have no CPU mode); skipped elsewhere. On a GPU host:
 
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from moge_tpu_torch.ops import alignment, attention, conv, norm
+from moge_tpu_torch.ops import alignment, attention, bitonic, conv, norm
 from torch_tiny_config import TINY_CONFIG
 
 pytestmark = pytest.mark.cuda
@@ -440,6 +442,51 @@ def test_dense_objective(dev, r, length, per_term):
     # the kernel's argmin attains the plain minimum (near-ties may pick another candidate)
     picked = want.gather(1, got.argmin(-1)[:, None])[:, 0]
     assert ((picked - want.amin(-1)) <= K4_REL * want.abs().max()).all()
+
+
+@pytest.mark.parametrize("per_term", [False, True])
+@pytest.mark.parametrize("impl", ["events", "prefix"])
+def test_sorted_align_forms_on_card_match_cpu(dev, monkeypatch, impl, per_term):
+    """The sorted truncated-align forms (plain PyTorch, no kernel) on the
+    card against the CPU: the same indices, also where zero targets under
+    negative x give -0.0 candidates tied with 0.0 ones (which a sort by bit
+    pattern would order by sign), a and the loss
+    within fp32 summation order (prefix: its cancellation error), no K4."""
+    monkeypatch.setenv("MOGE_ALIGN_TRUNC_IMPL", impl)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((16, 300)).astype(np.float32)
+    y = (1.7 * x + 0.3 * rng.standard_normal(x.shape)).astype(np.float32)
+    w = (rng.uniform(0, 1, x.shape) * (rng.uniform(size=x.shape) > 0.2)).astype(np.float32)
+    y[:, ::4] = 0.0
+    x[:, ::8] = -np.abs(x[:, ::8])
+    x, y, w = map(torch.from_numpy, (x, y, w))
+    t = torch.from_numpy(rng.uniform(0.2, 2.0, x.shape).astype(np.float32)) if per_term else 1.0
+    before = alignment.LAUNCHES
+    got = alignment.align(x.to(dev), y.to(dev), w.to(dev), t.to(dev) if per_term else t)
+    assert alignment.LAUNCHES == before
+    want = alignment.align(x, y, w, t)
+    assert torch.equal(got[2].cpu(), want[2])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=FP32_TOL, atol=0.0)
+    cancel = (y / x.abs().clamp_min(1e-7)).abs().amax(-1) * (w * x.abs()).sum(-1) if impl == "prefix" else 0.0
+    assert ((got[1].cpu() - want[1]).abs() <= FP32_TOL * (1 + want[1].abs()) + 4e-7 * cancel).all()
+
+
+def test_bitonic_network_on_card_matches_stable_sort(dev):
+    """The bitonic network (plain PyTorch) on the card: the stable sort's
+    permutation, bit for bit, on keys with ties, signed zeros and a
+    non-power-of-two length, for fp32 and int32 payloads."""
+    rng = np.random.default_rng(6)
+    keys = rng.integers(-3, 4, (8, 300)).astype(np.float32)
+    keys[:, ::7] = -0.0
+    keys[:, ::11] = rng.standard_normal(keys[:, ::11].shape)
+    pos = np.broadcast_to(np.arange(300, dtype=np.int32), keys.shape).copy()
+    vals = rng.standard_normal(keys.shape).astype(np.float32)
+    k, p, v = (torch.from_numpy(a).to(dev) for a in (keys, pos, vals))
+    got = bitonic.sort_with_payloads(k, [p, v])
+    want = alignment.sort_stable(k, [p, v])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1].cpu(), bitonic.sort_with_payloads(k.cpu(), [p.cpu(), v.cpu()])[1])
 
 
 def test_tiny_gradient_on_card_matches_cpu(dev):

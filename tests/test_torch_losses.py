@@ -167,6 +167,24 @@ def test_local_loss_matches_jax(monkeypatch, anchor_form, global_scale):
     _check(loss_t, loss_j, leaf, jax.grad(lambda p: fn(p)[0].sum())(jnp.asarray(pred)))
 
 
+def test_local_loss_reads_the_anchor_weight_form_from_the_environment(monkeypatch, anchor_form):
+    """With no form passed, ``MOGE_ANCHOR_WEIGHT_IMPL`` selects it as in the
+    JAX package (``gather`` the gather form, anything else the shift form):
+    the two local losses agree under the variable alone."""
+    _, intr, _, gt, pred = _surface(2, 40, 48, 7)
+    focal = (1.0 / np.sqrt(1.0 / intr[:, 0, 0] ** 2 + 1.0 / intr[:, 1, 1] ** 2)).astype(np.float32)
+    key = jax.random.PRNGKey(8)
+    kw = dict(level=4, align_resolution=6, num_patches=8)
+    loss_j, misc_j = JL.affine_invariant_local_loss(key, jnp.asarray(pred), jnp.asarray(gt), jnp.asarray(focal),
+                                                    None, **kw)
+    _inject(monkeypatch, _jax_local_draws(key, jnp.asarray(gt), jnp.asarray(focal), 4, 8))
+    loss_t, misc_t = losses.affine_invariant_local_loss(None, _t(pred), _t(gt), _t(focal), None, **kw)
+    assert float(loss_j.sum()) > 0
+    np.testing.assert_allclose(loss_t.numpy(), np.asarray(loss_j), rtol=TOL, atol=TOL)
+    for k in misc_j:
+        np.testing.assert_allclose(misc_t[k].numpy(), np.asarray(misc_j[k]), rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("name", ["normal_loss", "edge_loss"])
 def test_direction_losses_match_jax(name):
     _, _, _, gt, pred = _surface(2, 12, 15, 6)
