@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MoGe inference, export, serving (sequence-parallel and int8 too), panorama, eval, training (step, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
+"""Drive the PyTorch port's MoGe inference, export, serving (sequence-parallel and int8 too), panorama, eval, training (step, remat, command, MoGe-1, parallel) and probes on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one GPU, nvcc on
 PATH or under $CUDA_HOME). Phases, any failure raising:
@@ -110,12 +110,21 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    CPU's;
 9. training at full width: ``configs/train/v2.json`` (model, optimizer, LR
    schedule, label type A losses), random weights from a seed, bf16 compute
-   with fp32 parameters, batch 2 at 512x512, three ``make_train_step`` steps
-   at 1369 and at 3600 tokens, launch counters per step, step time and peak
-   memory;
+   with fp32 parameters, batch 2 at 512x512, two ``make_train_step`` steps
+   at 1369 tokens (3600 tokens: phase 10b's plain steps), launch counters
+   per step, step time and peak memory;
 10. training parity: ``moge-2-vits-normal``, one fp32 grad step on the card
     (kernels) against the CPU (plain versions) from the same weights, batch
     and random draws: loss, every alignment solve and the gradients;
+10b. activation checkpointing (its kernels' shapes held in phase 3):
+    v2.json's model at 3600 tokens, 512x512, batch 2 and 8, grad steps
+    with ``remat`` off and on (a warm step, the median of 3, the peak),
+    launch counters per step against the config's (the remat'd modules'
+    K1, K2 and K3 twice), peak(remat) below peak(plain), and from one
+    state the remat step's loss and gradients within 2x the plain step's
+    own spread over repeats; then one plain and one remat grad step of
+    MoGe-1 (v1.json, 512x1024, 1200 tokens) and of the giant (batch 2),
+    with their peaks;
 11. the training command: ``cli train`` in-process over a copy of
     ``configs/train/v2.json`` whose datasets are synthetic (labels A, B, C,
     metric and not, inf sky, NaN holes, the v2 per-dataset options), the
@@ -152,8 +161,10 @@ pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
 launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
 K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``).
 
-Prints a JSON line with the kernels' numbers, the inference, export, batched,
-serving, panorama, eval and training numbers, the card's name and power limit, and last
+Prints a ``[time] <phase> <seconds>`` line after each phase and the total
+before the card's line, a JSON line with the kernels' numbers, the inference,
+export, batched, serving, panorama, eval, training and remat numbers, the
+card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is its count
 summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
@@ -162,7 +173,8 @@ artifact run for ``export``, one
 batch for ``serve``, one dense solve for ``align_forms``, one grad step
 for ``train_events`` and ``train_prefix``, one 12-view panorama for
 ``panorama``, one sample for
-``eval``, one step for ``train``, one micro-batch for ``train_cli``,
+``eval``, one step for ``train``, one remat grad step for ``train_remat``,
+``train_remat_v1`` and ``train_remat_giant``, one micro-batch for ``train_cli``,
 ``train_v1``, ``train_single``, ``train_nccl`` and ``train_fsdp``, one
 rank's micro-batch for ``train_dp``, the
 three tools' measurements for ``probes``, one rank's forward or serving
@@ -237,9 +249,17 @@ PROBE_KERNELS = ("exp_flash_softmax", "exp_vpu_ceiling", "exp_dense_v1", "exp_de
                  "exp_dense_bf16")
 CLOCK_HZ = 1.98e9  # the card's maximum SM clock, read in main (FP32 and MUFU rates scale with it)
 TRAIN_CONFIG = ROOT / "configs" / "train" / "v2.json"
-TRAIN_TOKENS = (1369, 3600)
-TRAIN_STEPS = 3
+TRAIN_TOKENS = (1369,)  # 3600 tokens: phase_train_remat's plain steps
+TRAIN_STEPS = 2
 TRAIN_HW = (512, 512)
+# activation checkpointing (remat): v2.json's model at 3600 tokens, 512^2,
+# batch 2 and 8, grad steps with remat off and on; MoGe-1 (v1.json) at the
+# v1 training command's 2:1 grid (v1_path_grids) and the giant at batch 2
+REMAT_TOKENS = 3600
+REMAT_BATCHES = (2, 8)
+REMAT_TIMES = 3  # timed grad steps per batch and mode, after a warm one (their median)
+REMAT_V1_TOKENS = 1200
+REMAT_V1_HW = (512, 1024)
 # training parity, fp32 on the card vs fp32 on the CPU: loss, solver scale and
 # shift (relative), gradients (relative L2 over all parameters)
 PARITY_LOSS_RTOL = 1e-4
@@ -508,6 +528,21 @@ def layer_norm_case(gen, m: int, d: int, offset: int = 0, variant: str = "vec16"
     return err, ms, plain_ms, lib_ms, bnd, dev_ms
 
 
+def remat_vits() -> list:
+    """(batch, tokens, heads, width) of each ViT forward of
+    ``phase_train_remat``'s runs: ViT-L at REMAT_TOKENS on TRAIN_HW, batch
+    2 and 8; the giant at batch 2; MoGe-1 at the v1 training command's 2:1
+    grid (``v1_path_grids``, = REMAT_V1_HW at REMAT_V1_TOKENS), batch 2."""
+    from moge_tpu_torch.models.dinov2 import VIT_ARCHS
+    from moge_tpu_torch.models.v2 import base_token_grid
+
+    gh, gw = base_token_grid(REMAT_TOKENS, TRAIN_HW[1] / TRAIN_HW[0])
+    (ph, pw), _ = v1_path_grids()["train_v1 2:1"][1:]
+    giant = VIT_ARCHS["dinov2_vitg14"]
+    return [(b, gh * gw + 1, 16, 1024) for b in REMAT_BATCHES] + \
+        [(2, gh * gw + 1, giant.num_heads, giant.embed_dim), (2, ph * pw + 1, 16, 1024)]
+
+
 def phase_kernels():
     """Each kernel vs its plain version (fp32 from the same bf16 inputs)."""
     import torch
@@ -529,19 +564,22 @@ def phase_kernels():
 
     # K1 LayerNorm: tolerance one bf16 ulp at the output's largest magnitude; ViT-L rows at batch 1
     # and 8, those of the panorama's 12 views and of eval, and the ViT-T width on 37 rows (vec16),
-    # then a view with a storage offset (scalar), then the giant's width at batch 1 (vec16)
+    # then a view with a storage offset (scalar), then the giant's width at batch 1 (vec16), then
+    # the rows of the remat runs' forwards not listed before
     k1 = []
-    for m, d, offset, variant in ((1370, 1024, 0, "vec16"), (3601, 1024, 0, "vec16"),
-                                  (8 * 3601, 1024, 0, "vec16"), (pano_b * pano_n, 1024, 0, "vec16"),
-                                  (eval_b * eval_n, 1024, 0, "vec16"), (37, 192, 0, "vec16"),
-                                  (1370, 1024, 1, "scalar"), (GIANT_TOKENS + 1, 1536, 0, "vec16")):
+    cases = [(1370, 1024, 0, "vec16"), (3601, 1024, 0, "vec16"), (8 * 3601, 1024, 0, "vec16"),
+             (pano_b * pano_n, 1024, 0, "vec16"), (eval_b * eval_n, 1024, 0, "vec16"), (37, 192, 0, "vec16"),
+             (1370, 1024, 1, "scalar"), (GIANT_TOKENS + 1, 1536, 0, "vec16")]
+    cases += [(b * n, d, 0, "vec16") for b, n, _, d in remat_vits() if (b * n, d, 0, "vec16") not in cases]
+    for m, d, offset, variant in cases:
         k1.append(layer_norm_case(gen, m, d, offset, variant, host=m == 1370 and not offset))
     results["layer_norm"] = k1
 
     # K2 flash attention: q/k/v as strided views of a (B, N, 3, H, 64) qkv tensor, at the ViT
     # token counts (batch 1 and 8, the panorama's 12 views, eval) with device times, then kv_valid
     # at the bf16 kernel's key-tile edges (one key, a tile less one, a tile, a tile and one) for
-    # the errors alone, then the giant's 24 heads at batch 1 (timed)
+    # the errors alone, then the giant's 24 heads at batch 1 (timed), then the remat runs' forwards
+    # (the errors alone)
     bc = attention.KEY_TILE
     k2 = []
     for b, n, kv_valid, timed, heads in [(1, 1370, None, True, 16), (1, 3601, None, True, 16),
@@ -549,7 +587,8 @@ def phase_kernels():
                                          (8, 1370, None, True, 16), (pano_b, pano_n, None, True, 16),
                                          (eval_b, eval_n, None, True, 16)] + \
                                         [(1, 1370, kv, False, 16) for kv in (1, bc - 1, bc, bc + 1)] + \
-                                        [(1, GIANT_TOKENS + 1, None, True, 24)]:
+                                        [(1, GIANT_TOKENS + 1, None, True, 24)] + \
+                                        [(b, n, None, False, heads) for b, n, heads, _ in remat_vits()]:
         qkv = randn(b, n, 3, heads, 64)
         q, k, v = qkv[:, :, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
         before = attention.VARIANT_LAUNCHES["wgmma"]
@@ -593,7 +632,8 @@ def path_grids() -> dict:
     PANO_LEVEL) and eval (EVAL_HW at resolution level 9, the adapter's
     default); then the training command's two extreme grids at its
     low-resolution 1200 tokens, aspect 2:1 and 1:2 (the ends of v2.json's
-    aspect_ratio_range), at its batch."""
+    aspect_ratio_range), at its batch; then ``phase_train_remat``'s grid
+    (REMAT_TOKENS on TRAIN_HW) at each of REMAT_BATCHES."""
     from moge_tpu_torch.models.presets import get_preset
     from moge_tpu_torch.models.v2 import base_token_grid
 
@@ -602,7 +642,9 @@ def path_grids() -> dict:
     return {"infer": (1, base_token_grid(1369, 1.0)), "panorama": (12, base_token_grid(tokens[PANO_LEVEL], 1.0)),
             "eval": (1, base_token_grid(tokens[9], EVAL_HW[1] / EVAL_HW[0])),
             "train_cli 2:1": (TRAIN_CLI_BATCH, base_token_grid(lo, 2.0)),
-            "train_cli 1:2": (TRAIN_CLI_BATCH, base_token_grid(lo, 0.5))}
+            "train_cli 1:2": (TRAIN_CLI_BATCH, base_token_grid(lo, 0.5)),
+            **{f"train_remat {b}": (b, base_token_grid(REMAT_TOKENS, TRAIN_HW[1] / TRAIN_HW[0]))
+               for b in REMAT_BATCHES}}
 
 
 def k3_shapes(grid_h: int, grid_w: int) -> list:
@@ -707,15 +749,16 @@ def conv_cases(gen):
     forward (batch 1, 1369 tokens), then at ragged ones, then at every shape
     of the panorama's (12 views, 3600 tokens), eval's (480x640, 3600 tokens)
     and the training command's two extreme grids (batch 2, 1200 tokens,
-    aspect 2:1 and 1:2) forwards (``path_grids``), then at every shape of
+    aspect 2:1 and 1:2) and ``phase_train_remat``'s (batch 2 and 8, 3600
+    tokens) forwards (``path_grids``), then at every shape of
     the MoGe-1 forwards of moge1_infer and the v1 training command
     (``v1_path_grids``, ``k3_shapes_v1``: moge-vitl's head, res blocks twice
     as wide as their stage); times (``conv_times``) of the kernel, the plain
-    version and F.conv2d (the MoGe-1 shapes: kernel and F.conv2d by CUDA
-    events alone, 5 calls); then per path K3 ms per forward by device time
-    (MoGe-1: by events), kernel against library: each shape's launches per
-    forward x its time, and their sums, which must be the config's launches
-    per forward."""
+    version and F.conv2d (the remat and MoGe-1 shapes: kernel and F.conv2d
+    by CUDA events alone, 5 calls); then per path K3 ms per forward by
+    device time (remat, MoGe-1: by events), kernel against library: each
+    shape's launches per forward x its time, and their sums, which must be
+    the config's launches per forward."""
     import torch
 
     from moge_tpu_torch.models.presets import get_preset
@@ -730,11 +773,13 @@ def conv_cases(gen):
     runs = [("infer", grids["infer"][0], k3_shapes(*grids["infer"][1]), "moge-2-vitl-normal"),
             (None, 1, [(*r, False, 0) for r in K3_RAGGED], None)] + \
            [(path, grids[path][0], k3_shapes(*grids[path][1]), "moge-2-vitl-normal")
-            for path in ("panorama", "eval", "train_cli 2:1", "train_cli 1:2")] + \
+            for path in ("panorama", "eval", "train_cli 2:1", "train_cli 1:2",
+                         *(f"train_remat {b}" for b in REMAT_BATCHES))] + \
            [(path, batch, k3_shapes_v1(v1_config, patch, resized), "moge-vitl")
             for path, (batch, patch, resized) in v1_grids.items()]
     cases = []
     for path, batch, shapes, model in runs:
+        events_only = model == "moge-vitl" or (path or "").startswith("train_remat")
         per_forward = {}
         for h, w, c, o, relu, use_res, up2, n in shapes:
             x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(bf16)
@@ -751,7 +796,7 @@ def conv_cases(gen):
             err = (got - want_out).abs().max().item()
             rel = err / want_out.abs().max().item()
             del got, want_out
-            if model == "moge-vitl":  # the check, and times by CUDA events alone (no profiler traces)
+            if events_only:  # the check, and times by CUDA events alone (no profiler traces)
                 ms = cuda_ms(lambda: conv.conv3x3_replicate(x, kern, bias, res, relu), 5)
                 lib_ms = cuda_ms(library_conv(x, kern, bias), 5)
                 plain_ms, dev_ms = None, {"device_ms": ms, "library_device_ms": lib_ms}
@@ -778,7 +823,7 @@ def conv_cases(gen):
         torch.cuda.empty_cache()
         if path is None:
             continue
-        measure = "CUDA events" if model == "moge-vitl" else "device time"
+        measure = "CUDA events" if events_only else "device time"
         for shape, (n, k_ms, l_ms) in per_forward.items():
             log(f"[K3 per forward] {path}: {shape}: {n} launches, {measure}: kernel {k_ms:.4f} ms, "
                 f"F.conv2d {l_ms:.4f} ms")
@@ -879,7 +924,8 @@ def grouped_cases(gen):
 def phase_kernels_train():
     """K2b-dq, K2b-dkv and K4 against their plain versions on the card; K2b
     bf16 also by device time, with the whole backward (delta + K2b-dq +
-    K2b-dkv) against SDPA's flash backward."""
+    K2b-dkv) against SDPA's flash backward; K2b also at the backward shapes
+    of ``phase_train_remat``'s runs (``remat_vits``), for the errors alone."""
     import torch
 
     from moge_tpu_torch.ops import alignment, attention
@@ -891,73 +937,85 @@ def phase_kernels_train():
 
     # K2b at the ViT token counts, q/k/v strided views of one qkv projection;
     # "plain" is autograd's backward through attention_plain (graph built once)
-    for dtype in (torch.bfloat16, torch.float32):
-        for n, kv_valid in ((1370, 1370), (3601, 3601), (1370, 1000)):
-            qkv = torch.randn(2, n, 3, 16, 64, generator=gen, device=dev).to(dtype)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            dout = torch.randn(2, n, 16, 64, generator=gen, device=dev).to(dtype)
-            out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
-            delta = attention.attention_bwd_delta(out, dout)
-            dq = attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid)
-            dk, dv = attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid)
-            leaves = [t.float().requires_grad_() for t in (q, k, v)]
-            want = torch.autograd.grad(attention.attention_plain(*leaves, kv_valid), leaves, dout.float())
-            tol = K2B_REL[str(dtype).split(".")[-1]] * max(w.abs().max().item() for w in want)
-            err_dq = (dq.float() - want[0]).abs().max().item()
-            err_dkv = max((g.float() - w).abs().max().item() for g, w in zip((dk, dv), want[1:]))
-            before = dict(attention.BWD_VARIANT_LAUNCHES)
-            again = (attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid),
-                     *attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid))
-            variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
-            if {key: c - before[key] for key, c in attention.BWD_VARIANT_LAUNCHES.items()} != \
-                    {key: 2 * (key == variant) for key in before}:
-                raise AssertionError(f"K2b at N={n} {dtype} did not launch the {variant} kernels")
-            if not all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv))):
-                raise AssertionError(f"K2b at N={n} {dtype}: two calls on the same inputs gave other bits")
-            dq_fn = functools.partial(attention.flash_attention_bwd_dq, q, k, v, dout, lse, delta, kv_valid)
-            dkv_fn = functools.partial(attention.flash_attention_bwd_dkv, q, k, v, dout, lse, delta, kv_valid)
-            plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
-            plain_out = attention.attention_plain(*plain_in, kv_valid)
-            plain_dq_fn = functools.partial(torch.autograd.grad, plain_out, plain_in[0], dout, retain_graph=True)
-            plain_dkv_fn = functools.partial(torch.autograd.grad, plain_out, plain_in[1:], dout, retain_graph=True)
-            # SDPA's flash backward (bf16 only) computes dq, dk and dv in one call
-            lib_fn = library_sdpa(q, k, v, kv_valid, dout) if dtype == torch.bfloat16 else None
-            io = 2 * n * 16 * 64 * qkv.element_size()  # one (B, N, H, 64) tensor
-            stats = 2 * 2 * 16 * n * 4                 # lse and delta
-            bnd_dq = bound(dtype, flops=6 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
-                           bytes_moved=5 * io + stats)
-            bnd_dkv = bound(dtype, flops=8 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
-                            bytes_moved=6 * io + stats)
-            label = f"B=2 H=16 N={n} kv_valid={kv_valid} {str(dtype).split('.')[-1]}"
-            if lib_fn is None:  # fp32: CUDA events only, as in PR 2-6
-                ms_dq, ms_dkv = cuda_ms(dq_fn), cuda_ms(dkv_fn)
-                plain_dq, plain_dkv = cuda_ms(plain_dq_fn, 10), cuda_ms(plain_dkv_fn, 10)
-                lib_ms, dev_dq, dev_dkv = None, {}, {}
-                times = f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms; dk/dv kernel {ms_dkv:.4f} ms, " \
-                        f"plain {plain_dkv:.4f} ms"
-            else:  # bf16: events and device time, and the whole backward (delta + dq + dkv) against SDPA's
-                ms_dq, plain_dq, lib_ms, dev_dq = call_times(dq_fn, plain_dq_fn, lib_fn, plain_iters=5)
-                ms_dkv, plain_dkv, _, dev_dkv = call_times(dkv_fn, plain_dkv_fn, lib_fn, plain_iters=5)
-                whole = device_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, dout, kv_valid))
-                bnd_all = bound(dtype, flops=10 * 2 * 16 * n * kv_valid * 64, mufu=2 * 16 * n * kv_valid,
-                                bytes_moved=8 * io + 2 * 16 * n * 4)
-                dev_dq["backward_device_ms"] = dev_dkv["backward_device_ms"] = whole
-                times = (f"dq {conv_times_text(ms_dq, plain_dq, lib_ms, dev_dq, 'SDPA flash backward')}; dk/dv "
-                         f"{conv_times_text(ms_dkv, plain_dkv, lib_ms, dev_dkv, 'SDPA flash backward')}")
-                log(f"[K2b] {label}: the whole backward (delta + dq + dk/dv) {whole:.4f} ms against SDPA's flash "
-                    f"backward {dev_dq['library_device_ms']:.4f} ms (device time; "
-                    f"{whole / dev_dq['library_device_ms']:.3f}x); its bound {bnd_all[0]:.4f} ms ({bnd_all[1]})")
-            del plain_out, plain_in
+    cases = [(dtype, 2, 16, n, kv_valid, True) for dtype in (torch.bfloat16, torch.float32)
+             for n, kv_valid in ((1370, 1370), (3601, 3601), (1370, 1000))]
+    # then the backward of the remat runs' forwards not among them, for the errors alone
+    cases += [(torch.bfloat16, b, heads, n, n, False) for b, n, heads, _ in remat_vits()
+              if (torch.bfloat16, b, heads, n, n, True) not in cases]
+    for dtype, b, heads, n, kv_valid, timed in cases:
+        qkv = torch.randn(b, n, 3, heads, 64, generator=gen, device=dev).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        dout = torch.randn(b, n, heads, 64, generator=gen, device=dev).to(dtype)
+        out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+        delta = attention.attention_bwd_delta(out, dout)
+        dq = attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid)
+        dk, dv = attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid)
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attention.attention_plain(*leaves, kv_valid), leaves, dout.float())
+        tol = K2B_REL[str(dtype).split(".")[-1]] * max(w.abs().max().item() for w in want)
+        err_dq = (dq.float() - want[0]).abs().max().item()
+        err_dkv = max((g.float() - w).abs().max().item() for g, w in zip((dk, dv), want[1:]))
+        before = dict(attention.BWD_VARIANT_LAUNCHES)
+        again = (attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid),
+                 *attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid))
+        variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
+        if {key: c - before[key] for key, c in attention.BWD_VARIANT_LAUNCHES.items()} != \
+                {key: 2 * (key == variant) for key in before}:
+            raise AssertionError(f"K2b at N={n} {dtype} did not launch the {variant} kernels")
+        if not all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv))):
+            raise AssertionError(f"K2b at N={n} {dtype}: two calls on the same inputs gave other bits")
+        label = f"B={b} H={heads} N={n} kv_valid={kv_valid} {str(dtype).split('.')[-1]}"
+        if not (err_dq <= tol and err_dkv <= tol):
+            raise AssertionError(f"K2b flash backward disagrees at {label}: {err_dq}, {err_dkv} > {tol}")
+        if not timed:
             log(f"[K2b] {label}: dq max_abs_err {err_dq:.3e}, dk/dv max_abs_err {err_dkv:.3e} (tol {tol:.3e}), "
-                f"bit-identical twice; {times}; bound dq {bnd_dq[0]:.4f} ms ({bnd_dq[1]}), dk/dv {bnd_dkv[0]:.4f} ms "
-                f"({bnd_dkv[1]})")
-            if not (err_dq <= tol and err_dkv <= tol):
-                raise AssertionError(f"K2b flash backward disagrees at {label}: {err_dq}, {err_dkv} > {tol}")
-            if kv_valid < n and (dk[:, kv_valid:].any() or dv[:, kv_valid:].any()):
-                raise AssertionError(f"K2b: masked keys got nonzero dk/dv at {label}")
-            results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq, lib_ms, bnd_dq, dev_dq))
-            results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv, lib_ms, bnd_dkv, dev_dkv))
+                f"bit-identical twice")
+            results["flash_attention_dq"].append((err_dq, None, None, None, None))
+            results["flash_attention_dkv"].append((err_dkv, None, None, None, None))
+            del qkv, q, k, v, dout, out, lse, delta, dq, dk, dv, leaves, want, again
             torch.cuda.empty_cache()
+            continue
+        dq_fn = functools.partial(attention.flash_attention_bwd_dq, q, k, v, dout, lse, delta, kv_valid)
+        dkv_fn = functools.partial(attention.flash_attention_bwd_dkv, q, k, v, dout, lse, delta, kv_valid)
+        plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        plain_out = attention.attention_plain(*plain_in, kv_valid)
+        plain_dq_fn = functools.partial(torch.autograd.grad, plain_out, plain_in[0], dout, retain_graph=True)
+        plain_dkv_fn = functools.partial(torch.autograd.grad, plain_out, plain_in[1:], dout, retain_graph=True)
+        # SDPA's flash backward (bf16 only) computes dq, dk and dv in one call
+        lib_fn = library_sdpa(q, k, v, kv_valid, dout) if dtype == torch.bfloat16 else None
+        io = b * n * heads * 64 * qkv.element_size()  # one (B, N, H, 64) tensor
+        stats = 2 * b * heads * n * 4               # lse and delta
+        bnd_dq = bound(dtype, flops=6 * b * heads * n * kv_valid * 64, mufu=b * heads * n * kv_valid,
+                       bytes_moved=5 * io + stats)
+        bnd_dkv = bound(dtype, flops=8 * b * heads * n * kv_valid * 64, mufu=b * heads * n * kv_valid,
+                        bytes_moved=6 * io + stats)
+        if lib_fn is None:  # fp32: CUDA events only, as in PR 2-6
+            ms_dq, ms_dkv = cuda_ms(dq_fn), cuda_ms(dkv_fn)
+            plain_dq, plain_dkv = cuda_ms(plain_dq_fn, 10), cuda_ms(plain_dkv_fn, 10)
+            lib_ms, dev_dq, dev_dkv = None, {}, {}
+            times = f"dq kernel {ms_dq:.4f} ms, plain {plain_dq:.4f} ms; dk/dv kernel {ms_dkv:.4f} ms, " \
+                    f"plain {plain_dkv:.4f} ms"
+        else:  # bf16: events and device time, and the whole backward (delta + dq + dkv) against SDPA's
+            ms_dq, plain_dq, lib_ms, dev_dq = call_times(dq_fn, plain_dq_fn, lib_fn, plain_iters=5)
+            ms_dkv, plain_dkv, _, dev_dkv = call_times(dkv_fn, plain_dkv_fn, lib_fn, plain_iters=5)
+            whole = device_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, dout, kv_valid))
+            bnd_all = bound(dtype, flops=10 * b * heads * n * kv_valid * 64, mufu=b * heads * n * kv_valid,
+                            bytes_moved=8 * io + b * heads * n * 4)
+            dev_dq["backward_device_ms"] = dev_dkv["backward_device_ms"] = whole
+            times = (f"dq {conv_times_text(ms_dq, plain_dq, lib_ms, dev_dq, 'SDPA flash backward')}; dk/dv "
+                     f"{conv_times_text(ms_dkv, plain_dkv, lib_ms, dev_dkv, 'SDPA flash backward')}")
+            log(f"[K2b] {label}: the whole backward (delta + dq + dk/dv) {whole:.4f} ms against SDPA's flash "
+                f"backward {dev_dq['library_device_ms']:.4f} ms (device time; "
+                f"{whole / dev_dq['library_device_ms']:.3f}x); its bound {bnd_all[0]:.4f} ms ({bnd_all[1]})")
+        del plain_out, plain_in
+        log(f"[K2b] {label}: dq max_abs_err {err_dq:.3e}, dk/dv max_abs_err {err_dkv:.3e} (tol {tol:.3e}), "
+            f"bit-identical twice; {times}; bound dq {bnd_dq[0]:.4f} ms ({bnd_dq[1]}), dk/dv {bnd_dkv[0]:.4f} ms "
+            f"({bnd_dkv[1]})")
+        if kv_valid < n and (dk[:, kv_valid:].any() or dv[:, kv_valid:].any()):
+            raise AssertionError(f"K2b: masked keys got nonzero dk/dv at {label}")
+        results["flash_attention_dq"].append((err_dq, ms_dq, plain_dq, lib_ms, bnd_dq, dev_dq))
+        results["flash_attention_dkv"].append((err_dkv, ms_dkv, plain_dkv, lib_ms, bnd_dkv, dev_dkv))
+        torch.cuda.empty_cache()
 
     # K4 at the v2 loss shapes (batch 2): rows bounded to ~2^32 pairs for the
     # comparison and the plain version's time; the kernel also at full rows
@@ -1469,13 +1527,17 @@ def expected_v1_launches(config) -> dict:
     return counts
 
 
-def expected_train_launches(config, loss_config, version: str = "v2") -> dict:
+def expected_train_launches(config, loss_config, version: str = "v2", remat: bool = False) -> dict:
     """Kernel launches per train step implied by a MoGe-2 (or, ``version``
     'v1', MoGe-1) config and a loss config: one forward (K1, K2, K3), the
     flash backward per block (K2b-dq, K2b-dkv; K1 and K3 backward in plain
     PyTorch), and one K4 per truncated alignment solve: the global loss's,
     and the local losses' (one batched solve when they share trunc and
-    align_resolution, else one each)."""
+    align_resolution, else one each). With ``remat`` the backward runs the
+    checkpointed modules' forwards again: each ViT block's two K1 and one K2
+    (the final norm is outside), and for MoGe-2 every K3 of the neck and the
+    heads (each in a residual block or a resampler); MoGe-1 checkpoints its
+    backbone only."""
     from moge_tpu_torch.models.dinov2 import VIT_ARCHS
 
     if version == "v1":
@@ -1490,6 +1552,11 @@ def expected_train_launches(config, loss_config, version: str = "v2") -> dict:
     n_global = sum(spec["function"] == "affine_invariant_global_loss" for spec in entries.values())
     counts.update(flash_attention_dq=depth, flash_attention_dkv=depth,
                   dense_align=n_global + (1 if shared else len(local)))
+    if remat:
+        counts["layer_norm"] += 2 * depth
+        counts["flash_attention"] += depth
+        if version == "v2":
+            counts["conv3x3"] *= 2
     return counts
 
 
@@ -2342,8 +2409,8 @@ def train_setup(device):
 
 def phase_train(card: str):
     """configs/train/v2.json at full width: moge-2-vitl-normal, random weights,
-    bf16 compute with fp32 parameters, label type A, batch 2 at 512x512, three
-    train steps at each token count."""
+    bf16 compute with fp32 parameters, label type A, batch 2 at 512x512,
+    TRAIN_STEPS train steps at each of TRAIN_TOKENS."""
     import numpy as np
     import torch
 
@@ -2486,6 +2553,163 @@ def phase_train_parity():
     log(f"[train-parity] gradients of {len(g_cpu)} parameters: relative L2 {grad_rel:.3e} (tol {PARITY_GRAD_RTOL})")
     if not grad_rel <= PARITY_GRAD_RTOL:
         raise AssertionError(f"gradients card vs CPU relative L2 {grad_rel} > {PARITY_GRAD_RTOL}")
+
+
+def grad_distance(a: dict, b: dict) -> float:
+    """The L2 norm of a - b over every gradient tensor (float64 sums)."""
+    return sum((a[k].double() - b[k].double()).square().sum().item() for k in a) ** 0.5
+
+
+def phase_train_remat(card: str):
+    """Activation checkpointing at full width: v2.json's model
+    (moge-2-vitl-normal) with random weights from SEED, bf16 compute, label
+    type A, REMAT_TOKENS tokens at TRAIN_HW, grad steps (forward, losses,
+    backward) at each of REMAT_BATCHES with ``remat`` off and on (two
+    modules, one state): a warm step and REMAT_TIMES timed ones each, their
+    median time and largest peak; every step's launches against
+    ``expected_train_launches`` (the remat steps counted under
+    ``train_remat``), peak(remat) below peak(plain) at each batch; then from
+    one state, batch and generator the plain step RESUME_REPEATS more times
+    (the card's spread: the backward sums with atomics) and the remat step
+    once, whose loss and gradients must fall within RESUME_MARGIN x that
+    spread (RESUME_RTOL relative when it is 0). Then one plain and one
+    remat step of MoGe-1 (v1.json, batch 2, REMAT_V1_HW at REMAT_V1_TOKENS)
+    and of the giant (``giant_config``, batch 2, as the ViT-L), counted
+    under ``train_remat_v1`` and ``train_remat_giant``, with their peaks."""
+    import numpy as np
+    import torch
+
+    from moge_tpu_torch.models.v1 import MoGeV1, normalize_config
+    from moge_tpu_torch.models.v2 import MoGeV2
+    from moge_tpu_torch.train.step import make_grad_step
+
+    dev = torch.device(DEVICE)
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    v1_cfg = json.loads(TRAIN_V1_CONFIG.read_text())
+    rng = np.random.default_rng(SEED + 7)
+    runs = {}
+
+    def pair(build, config):
+        """The plain module (random weights from SEED) and the remat one with its weights."""
+        with torch.device(dev):
+            plain = build(config).init_random(seed=SEED)
+            remat = build(config, remat=True)
+        remat.load_state_dict(plain.state_dict(), strict=True)
+        return {False: plain, True: remat}
+
+    def step(module, loss, batch, num_tokens, expect, path, label):
+        """One grad step from the module's state, the losses' generator seeded
+        SEED: (gradients, loss, ms, peak GiB, GiB held before it)."""
+        grad_step = make_grad_step(module, loss, list(loss), num_tokens, torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) / 2 ** 30
+        reset_counts()
+        t0 = time.perf_counter()
+        grads, metrics = grad_step(batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        total = float(metrics["total"])
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+        if path is not None:
+            check_variants(path, label, counts)
+            runs[path] = runs.get(path, 0) + 1
+        if not np.isfinite(total) or not all(torch.isfinite(g).all() for g in grads.values()):
+            raise AssertionError(f"{label}: non-finite loss {total} or gradients")
+        return grads, total, ms, peak, held
+
+    lt_a = list(cfg["loss"]).index("A")
+    expect = {r: expected_train_launches(cfg["model"], cfg["loss"], remat=r) for r in (False, True)}
+    modules = pair(lambda c, **kw: MoGeV2(**c, **kw), cfg["model"])
+    log(f"[train_remat] moge-2-vitl-normal, bf16, {REMAT_TOKENS} tokens at {TRAIN_HW}: launches per grad step "
+        f"plain {expect[False]}, remat {expect[True]}")
+    stats = {}
+    for batch_size in REMAT_BATCHES:
+        batch = train_batch(rng, batch_size, TRAIN_HW, lt_a, dev)
+        row = {}
+        for remat in (False, True):
+            mode = "remat" if remat else "plain"
+            times, peaks = [], []
+            for i in range(1 + REMAT_TIMES):
+                grads, total, ms, peak, held = step(modules[remat], cfg["loss"], batch, REMAT_TOKENS, expect[remat],
+                                                    "train_remat" if remat else None,
+                                                    f"train_remat batch {batch_size} {mode} step {i}")
+                del grads
+                if i:
+                    times.append(ms)
+                    peaks.append(peak)
+            row[mode] = {"ms": statistics.median(times), "ms_all": times, "peak_gib": max(peaks), "held_gib": held,
+                         "loss": total}
+        # the gradients from one state, batch and generator: the plain step's spread, the remat step within it
+        ref, ref_loss, *_ = step(modules[False], cfg["loss"], batch, REMAT_TOKENS, expect[False], None,
+                                 f"train_remat batch {batch_size} plain reference")
+        repeats = []
+        for i in range(RESUME_REPEATS):
+            grads, total, *_ = step(modules[False], cfg["loss"], batch, REMAT_TOKENS, expect[False], None,
+                                    f"train_remat batch {batch_size} plain repeat {i}")
+            repeats.append((grad_distance(ref, grads), abs(total - ref_loss)))
+            del grads
+        grads, total, *_ = step(modules[True], cfg["loss"], batch, REMAT_TOKENS, expect[True], "train_remat",
+                                f"train_remat batch {batch_size} remat against the reference")
+        got = (grad_distance(ref, grads), abs(total - ref_loss))
+        norm = sum(g.double().square().sum().item() for g in ref.values()) ** 0.5
+        del grads, ref
+        spread = tuple(max(r[i] for r in repeats) for i in range(2))
+        bounds = tuple(RESUME_MARGIN * sp if sp > 0 else RESUME_RTOL * scale
+                       for sp, scale in zip(spread, (norm, abs(ref_loss))))
+        row["gradients"] = {"l2_norm": norm, "remat_l2": got[0], "repeats_l2": [r[0] for r in repeats],
+                            "remat_loss_diff": got[1], "repeats_loss_diff": [r[1] for r in repeats]}
+        plain, remat = row["plain"], row["remat"]
+        log(f"[train_remat] batch {batch_size}: plain {plain['ms']:.1f} ms (of {[round(t, 1) for t in plain['ms_all']]})"
+            f", peak {plain['peak_gib']:.2f} GiB; remat {remat['ms']:.1f} ms (of "
+            f"{[round(t, 1) for t in remat['ms_all']]}), peak {remat['peak_gib']:.2f} GiB; "
+            f"{plain['held_gib']:.2f} GiB held before each step; time x{remat['ms'] / plain['ms']:.3f}, peak "
+            f"{remat['peak_gib'] - plain['peak_gib']:+.2f} GiB ({card})")
+        log(f"[train_remat] batch {batch_size}: gradients (L2 {norm:.4e}) remat vs plain {got[0]:.3e}, plain repeats "
+            f"{[f'{r[0]:.3e}' for r in repeats]} (bound {bounds[0]:.3e}); loss {ref_loss:.6f}, remat vs plain "
+            f"{got[1]:.3e}, repeats {[f'{r[1]:.3e}' for r in repeats]} (bound {bounds[1]:.3e})")
+        if not (got[0] <= bounds[0] and got[1] <= bounds[1]):
+            raise AssertionError(f"batch {batch_size}: the remat step's gradients or loss ({got}) outside the card's "
+                                 f"spread (bounds {bounds})")
+        if not remat["peak_gib"] < plain["peak_gib"]:
+            raise AssertionError(f"batch {batch_size}: remat peak {remat['peak_gib']} GiB not below plain's "
+                                 f"{plain['peak_gib']}")
+        stats[f"batch_{batch_size}"] = row
+        torch.cuda.empty_cache()
+    del modules
+    torch.cuda.empty_cache()
+
+    # MoGe-1 and the giant: one plain and one remat step each, batch 2
+    others = (("v1", "moge-vitl (v1.json)", lambda c, **kw: MoGeV1(**normalize_config(c), **kw), v1_cfg["model"],
+               v1_cfg["loss"], "synthetic", REMAT_V1_HW, REMAT_V1_TOKENS, "v1"),
+              ("giant", "moge-2 on dinov2_vitg14", lambda c, **kw: MoGeV2(**c, **kw), giant_config(), cfg["loss"],
+               "A", TRAIN_HW, REMAT_TOKENS, "v2"))
+    for key, name, build, config, loss, label_type, hw, num_tokens, version in others:
+        modules = pair(build, config)
+        batch = train_batch(rng, 2, hw, list(loss).index(label_type), dev)
+        row = {}
+        for remat in (False, True):
+            mode = "remat" if remat else "plain"
+            want = expected_train_launches(config, loss, version, remat)
+            grads, total, ms, peak, held = step(modules[remat], loss, batch, num_tokens, want,
+                                                f"train_remat_{key}" if remat else None, f"{name} {mode} step")
+            del grads
+            row[mode] = {"ms": ms, "peak_gib": peak, "held_gib": held, "loss": total, "launches": want}
+        log(f"[train_remat] {name}, batch 2, {hw} at {num_tokens} tokens, one step each (the first): plain "
+            f"{row['plain']['ms']:.1f} ms, peak {row['plain']['peak_gib']:.2f} GiB; remat {row['remat']['ms']:.1f} "
+            f"ms, peak {row['remat']['peak_gib']:.2f} GiB; {row['plain']['held_gib']:.2f} GiB held before each "
+            f"({card})")
+        stats[key] = row
+        del modules
+        torch.cuda.empty_cache()
+    launches = {"train_remat": (expect[True], runs["train_remat"]),
+                "train_remat_v1": (stats["v1"]["remat"]["launches"], runs["train_remat_v1"]),
+                "train_remat_giant": (stats["giant"]["remat"]["launches"], runs["train_remat_giant"])}
+    return launches, stats
 
 
 def phase_host_packages():
@@ -2989,12 +3213,14 @@ def check_ranks(label: str, ranks: list, expect: dict) -> list:
 
 def checkpoint_tensors(workspace: Path) -> dict:
     """The parameters and EMA of a parallel run's last checkpoint (rank 0
-    wrote it), in ``state_distance``'s form."""
+    wrote it), in ``state_distance``'s form, on the card (where the
+    distances' float64 sums take milliseconds, not the host's seconds)."""
     import torch
 
     ckpt = workspace / "checkpoints" / str(PARALLEL_STEPS - 1)
-    named = {f"model.{k}": v for k, v in torch.load(ckpt / "model.pt", weights_only=True)["model"].items()}
-    ema = torch.load(ckpt.with_name(ckpt.name + "_ema") / "model.pt", weights_only=True)["model"]
+    named = {f"model.{k}": v for k, v in torch.load(ckpt / "model.pt", weights_only=True,
+                                                    map_location=DEVICE)["model"].items()}
+    ema = torch.load(ckpt.with_name(ckpt.name + "_ema") / "model.pt", weights_only=True, map_location=DEVICE)["model"]
     named.update({f"ema.{k}": v for k, v in ema.items()})
     return {"tensors": named, "scalars": {}}
 
@@ -3005,7 +3231,7 @@ def split_reference(config_path: Path) -> dict:
     the low-resolution steps), each step's global batch taken as two
     micro-batches of one instance (``train_iteration``'s mean of their
     gradients): the ranks' arithmetic without the collectives. Its
-    parameters and EMA, in ``state_distance``'s form."""
+    parameters and EMA, in ``state_distance``'s form, on the card."""
     import torch
 
     from moge_tpu_torch.models.io import _ema_state_dict
@@ -3038,9 +3264,8 @@ def split_reference(config_path: Path) -> dict:
                                                gen)
             if record["grads_ok"] != 1.0:
                 raise AssertionError("the split reference skipped an update")
-    named = {f"model.{k}": v.detach().cpu() for k, v in module.state_dict().items()}
-    named.update({f"ema.{k}": v.detach().cpu() for k, v in _ema_state_dict(module.state_dict(),
-                                                                            state.ema_params).items()})
+    named = {f"model.{k}": v.detach() for k, v in module.state_dict().items()}
+    named.update({f"ema.{k}": v.detach() for k, v in _ema_state_dict(module.state_dict(), state.ema_params).items()})
     del module, state, tx
     torch.cuda.empty_cache()
     return {"tensors": named, "scalars": {}}
@@ -3096,6 +3321,12 @@ def phase_parallel(card: str):
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=root))
     launches, stats = {}, {}
     on_card = DEVICE.startswith("cuda")  # a CPU rehearsal's one rank is gloo's
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):  # seconds since the last lap, by part of the phase
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
     try:
         config_path = parallel_config(tmp)
         cfg = json.loads(config_path.read_text())
@@ -3112,6 +3343,7 @@ def phase_parallel(card: str):
             torch.cuda.empty_cache()
         launches["train_single"] = (expect, 2 * micro)
         stats["single"] = singles
+        lap("single")
 
         all_reduce, join = dist.all_reduce, Parallel.join
         for label, shard in (("nccl", False), ("fsdp", True)):
@@ -3159,6 +3391,7 @@ def phase_parallel(card: str):
             stats[label] = {"step_s": [x["t"] for x in lines], "total": [x["total"] for x in lines],
                             "peak_gib": peak_gib, "state_gib": state_gib, "wall_s": wall_s, "nccl_kernels": nccl,
                             "all_reduces": calls}
+            lap(label)
 
         ranks = run_ranks(tmp, config_path, {"dp": ()})["dp"]
         stats["dp"] = check_ranks("dp", ranks, expect)
@@ -3167,6 +3400,7 @@ def phase_parallel(card: str):
             f"equal on both ranks; per rank peak {[round(x['peak_gib'], 2) for x in stats['dp']]} GiB, own "
             f"training state {[round(x['state_gib'], 2) for x in stats['dp']]} GiB; step s (gloo rehearsal, "
             f"gradients staged through host memory: not NCCL's) {[x['step_s'] for x in stats['dp']]} ({card})")
+        lap("dp")
 
         # each run's parameters and EMA against a one-process run of the same
         # arithmetic, within RESUME_MARGIN x the card's spread, the largest
@@ -3178,7 +3412,9 @@ def phase_parallel(card: str):
         # the single-process runs and the NCCL rank's
         runs = {name: checkpoint_tensors(tmp / name) for name in ("single_0", "single_1", "nccl", "fsdp")}
         first = runs["single_0"]
+        lap("load")
         split = split_reference(config_path)
+        lap("split")
 
         def widest(names):  # the largest distance among these runs of one arithmetic
             pairs = [state_distance(runs[a], runs[b]) for i, a in enumerate(names) for b in names[i + 1:]]
@@ -3209,6 +3445,9 @@ def phase_parallel(card: str):
                 raise AssertionError(f"train_{label}: {d['l2']} off {ref_name}, spread {spread['l2']}")
         log(f"[parallel] the split reference (a batch of 1 per forward) off the single-process run (a batch of 2): "
             f"{stats['distance_l2']['split_vs_single']}")
+        lap("distances")
+        stats["seconds"] = seconds
+        log(f"[parallel] seconds by part: {seconds}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3803,6 +4042,14 @@ REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "
                "exp_dense_v1": 0, "exp_dense_v1_unroll": 0, "exp_dense_v2": 0, "exp_dense_bf16": 0}
 
 
+def timed(name: str, phase, *args):
+    """``phase(*args)``, then a ``[time] <name> <seconds>`` line."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {name} {time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main(argv=None) -> int:
     global CLOCK_HZ
     import torch
@@ -3810,60 +4057,64 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--cards"]):
         raise SystemExit(f"usage: python3 chip_smoke.py [--cards]; got {argv}")
-    card = phase_device()
+    started = time.perf_counter()
+    card = timed("device", phase_device)
     if not (ROOT / "moge_tpu_torch").is_dir():
         raise RuntimeError(f"moge_tpu_torch/ not found beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
     sys.path.append(str(ROOT / "tests"))  # torch_tiny_config: make_points_perspective, the synthetic datasets
-    phase_host_packages()
+    timed("host_packages", phase_host_packages)
     from moge_tpu_torch.tools import roofline
 
     CLOCK_HZ = roofline.sm_clock_hz()
     log(f"[device] max SM clock {CLOCK_HZ / 1e9:.3f} GHz: FP32 "
         f"{roofline.SMS * roofline.FP32_LANES_PER_SM * CLOCK_HZ / 1e12:.2f} T instr/s, MUFU "
         f"{roofline.SMS * roofline.MUFU_PER_SM * CLOCK_HZ / 1e12:.3f} T/s")
-    phase_build()
+    timed("build", phase_build)
     if argv == ["--cards"]:
-        print(json.dumps({"cards": phase_cards(card), "sp_cards": phase_sp_cards(card)}))
+        print(json.dumps({"cards": timed("cards", phase_cards, card), "sp_cards": timed("sp_cards", phase_sp_cards, card)}))
         print(card)
         return 0
-    kernel_results = {**phase_kernels(), **phase_kernels_train()}
+    kernel_results = {**timed("kernels", phase_kernels), **timed("kernels_train", phase_kernels_train)}
     # each path is driven with the counters set to 0 just before each of its
     # runs and read just after; every run of a path launches the same counts
     launches = {}  # path -> (launches per run, runs)
-    align_launches, align_stats = phase_align_forms(card)
+    align_launches, align_stats = timed("align_forms", phase_align_forms, card)
     launches.update(align_launches)
     torch.cuda.empty_cache()
-    probe_results, launches["probes"], probe_tables = phase_probes(card)
+    probe_results, launches["probes"], probe_tables = timed("probes", phase_probes, card)
     kernel_results.update(probe_results)
-    seq, launches["infer"], latencies = phase_slice(card)
-    phase_parity()
-    launches["export"], export_stats = phase_export(card, seq)
-    bat, launches["batched_heads"], batched_ms = phase_batched(card, seq)
+    seq, launches["infer"], latencies = timed("slice", phase_slice, card)
+    timed("parity", phase_parity)
+    launches["export"], export_stats = timed("export", phase_export, card, seq)
+    bat, launches["batched_heads"], batched_ms = timed("batched", phase_batched, card, seq)
     del seq
-    launches["serve"], serve_stats = phase_serve(card, bat, launches["batched_heads"][0])
+    launches["serve"], serve_stats = timed("serve", phase_serve, card, bat, launches["batched_heads"][0])
     del bat
     torch.cuda.empty_cache()
-    (sp_k1, sp_k2), launches["sp"], sp_stats = phase_sp(card)
+    (sp_k1, sp_k2), launches["sp"], sp_stats = timed("sp", phase_sp, card)
     kernel_results["layer_norm"] += sp_k1
     kernel_results["flash_attention"] += sp_k2
-    launches["int8"], int8_stats = phase_int8(card)
+    launches["int8"], int8_stats = timed("int8", phase_int8, card)
     torch.cuda.empty_cache()
-    launches["moge1_infer"], moge1_ms = phase_moge1(card)
+    launches["moge1_infer"], moge1_ms = timed("moge1", phase_moge1, card)
     torch.cuda.empty_cache()
-    launches["panorama"], panorama_stats = phase_panorama(card)
+    launches["panorama"], panorama_stats = timed("panorama", phase_panorama, card)
     torch.cuda.empty_cache()
-    launches["eval"], eval_stats = phase_eval(card)
+    launches["eval"], eval_stats = timed("eval", phase_eval, card)
     torch.cuda.empty_cache()
-    launches["train"], train_steps = phase_train(card)
-    phase_train_parity()
+    launches["train"], train_steps = timed("train", phase_train, card)
+    timed("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
-    launches["train_cli"], train_cli_stats = phase_train_cli(card)
-    launches["train_v1"], train_v1_stats = phase_train_v1(card)
-    parallel_launches, parallel_stats = phase_parallel(card)
+    remat_launches, remat_stats = timed("train_remat", phase_train_remat, card)
+    launches.update(remat_launches)
+    torch.cuda.empty_cache()
+    launches["train_cli"], train_cli_stats = timed("train_cli", phase_train_cli, card)
+    launches["train_v1"], train_v1_stats = timed("train_v1", phase_train_v1, card)
+    parallel_launches, parallel_stats = timed("parallel", phase_parallel, card)
     launches.update(parallel_launches)
-    launches["giant"], giant_stats = phase_giant(card)
-    phase_vis_data()
+    launches["giant"], giant_stats = timed("giant", phase_giant, card)
+    timed("vis_data", phase_vis_data)
     kernels = []
     for name, source, replaces in KERNELS:
         cases = kernel_results[name]
@@ -3884,7 +4135,8 @@ def main(argv=None) -> int:
                       "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
                       "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
                       "train_v1": train_v1_stats, "parallel": parallel_stats, "giant": giant_stats,
-                      "probes": probe_tables, "align_forms": align_stats}))
+                      "probes": probe_tables, "align_forms": align_stats, "train_remat": remat_stats}))
+    log(f"[time] total {time.perf_counter() - started:.1f}")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,9 @@ outlives a parameter update. While a program is traced (``torch.export``)
 it reads no parameter's address or version (a traced parameter may be a
 fake tensor): it returns the entry cached under the key for the same tag,
 so a program exported after one eager call of the same shapes holds the
-derived weights as constants (``models/export.py``).
+derived weights as constants (``models/export.py``). ``remat_call`` runs
+a module as an activation checkpoint (the models' ``remat``), its derived
+weights rebuilt inside it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Callable, Hashable
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -55,3 +58,16 @@ def cast(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
     if p.dtype == dtype:
         return p
     return derived(module, (name, dtype), lambda t: t.to(dtype), p)
+
+
+def remat_call(module: nn.Module, remat: bool, *args: Any) -> Any:
+    """``module(*args)``; with ``remat`` and grad mode on, as an activation
+    checkpoint: the region keeps only its inputs for the backward and runs
+    its forward again there to rebuild what its backward needs. The
+    checkpoint is the non-reentrant form: the reentrant one runs the first
+    forward under ``no_grad``, where ``derived`` hands out detached cached
+    weights. With grad mode off no checkpoint is entered, so inference runs
+    as without ``remat``."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False)
+    return module(*args)

@@ -20,6 +20,12 @@ chunk of the tokens (zero-padded at the global tail), attention gathers K
 and V over the group and masks the padding keys (K2 at Nq = chunk, Nkv =
 ranks x chunk, ``kv_valid`` = the real tokens), and the final norm's
 outputs are gathered.
+
+``remat`` (training, as the JAX package's ``nn.remat(Block)``) runs each
+block as an activation checkpoint when grad mode is on (``remat_call``):
+the backward keeps each block's input and runs the block's forward again
+(two more K1 launches and one more K2 per block). The patch embed, the position
+embedding and the final norm stay outside.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from ..ops.norm import layer_norm_fp32
 from ..ops.quant import QuantLinear
 from ..ops.resize import resize_2d
 from ..parallel.sp import gather_tokens, shard_tokens
-from ._weights import cast, derived
+from ._weights import cast, derived, remat_call
 
 __all__ = ["ViTConfig", "VIT_ARCHS", "DinoVisionTransformer"]
 
@@ -196,9 +202,10 @@ class PatchEmbed(nn.Module):
 
 
 class DinoVisionTransformer(nn.Module):
-    def __init__(self, config: ViTConfig, use_int8: bool = False):
+    def __init__(self, config: ViTConfig, use_int8: bool = False, remat: bool = False):
         super().__init__()
         self.config = config
+        self.remat = remat
         dim = config.embed_dim
         self.patch_embed = PatchEmbed(config.patch_size, dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
@@ -255,7 +262,7 @@ class DinoVisionTransformer(nn.Module):
         take = set(int(i) for i in take_layers)
         outputs = []
         for i, block in enumerate(self.blocks):
-            x = block(x, sp)
+            x = remat_call(block, self.remat, x, sp)
             if i in take:
                 outputs.append(x)
         results = []

@@ -6,7 +6,9 @@ the MLP, the per-level UV maps and the ConvStack pyramid with its folded
 finest-level epilogue. Module and parameter names are the microsoft/MoGe
 state-dict names. 3x3 convs run kernel K3 on the card (its backward in plain
 PyTorch); other kernel sizes and the norms are plain PyTorch, as the JAX
-package leaves them to XLA. Every parameter is differentiable.
+package leaves them to XLA. Every parameter is differentiable. ``remat``
+(training) checkpoints the ViT blocks (``DINOv2Encoder``) and each residual
+block and resampler of a ``ConvStack``, as the JAX package's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 
 from ..ops.conv import conv3x3_replicate, depth_to_space2, up2_conv3_expanded
 from ..ops.resize import resize_2d
-from ._weights import cast, derived
+from ._weights import cast, derived, remat_call
 from .dinov2 import VIT_ARCHS, DinoVisionTransformer, LayerNorm, Linear
 
 __all__ = ["DINOv2Encoder", "ResidualConvBlock", "ConvTranspose2x", "Resampler", "MLP", "Norm2d",
@@ -320,13 +322,16 @@ class ConvStack(nn.Module):
     projection and the finest input projection are folded into the last
     resampler's conv, as in the JAX package. (JAX pads the folded channels
     to at least 32 for its kernel; zero columns change no output, so the
-    port does not.)"""
+    port does not.) With ``remat`` and grad mode on, each residual block
+    and each resampler (the folded one too, its derived weights rebuilt
+    inside) runs as an activation checkpoint (``remat_call``)."""
 
     def __init__(self, dim_in, dim_res_blocks: Sequence[int], dim_out, resamplers,
                  dim_times_res_block_hidden: int = 1, num_res_blocks: Union[int, Sequence[int]] = 1,
                  res_block_in_norm: str = "layer_norm", res_block_hidden_norm: str = "group_norm",
-                 activation: str = "relu"):
+                 activation: str = "relu", remat: bool = False):
         super().__init__()
+        self.remat = remat
         n = len(dim_res_blocks)
         dims_in = dim_in if isinstance(dim_in, (list, tuple)) else [dim_in] * n
         dims_out = dim_out if isinstance(dim_out, (list, tuple)) else [dim_out] * n
@@ -367,11 +372,12 @@ class ConvStack(nn.Module):
                 x = feat
             elif feat is not None:
                 x = x + feat
-            x = self.res_blocks[i](x)
+            for block in self.res_blocks[i]:
+                x = remat_call(block, self.remat, x)
             out_features.append(self.output_blocks[i](x))
             if i < n - 1:
                 fold = self.output_blocks[n - 1] if (self.fuse_last and i == n - 2) else None
-                x = self.resamplers[i](x, fold)
+                x = remat_call(self.resamplers[i], self.remat, x, fold)
         return out_features
 
     @staticmethod
@@ -392,13 +398,14 @@ class DINOv2Encoder(nn.Module):
     """ViT encoder wrapper: ImageNet normalisation, intermediate layers,
     1x1 projections summed. ``sp_group`` runs the ViT sequence-parallel over
     a process group, ``use_int8`` its block projections in W8A8 int8 (both
-    inference only; ``models/dinov2.py``)."""
+    inference only), ``remat`` its blocks as activation checkpoints
+    (training; ``models/dinov2.py``)."""
 
     def __init__(self, backbone: str, intermediate_layers: Union[int, Sequence[int]], dim_out: int,
-                 sp_group=None, use_int8: bool = False):
+                 sp_group=None, use_int8: bool = False, remat: bool = False):
         super().__init__()
         cfg = VIT_ARCHS[backbone]
-        self.backbone = DinoVisionTransformer(cfg, use_int8)
+        self.backbone = DinoVisionTransformer(cfg, use_int8, remat)
         self.sp_group = sp_group
         if isinstance(intermediate_layers, int):
             self.take_layers = tuple(range(cfg.depth - intermediate_layers, cfg.depth))

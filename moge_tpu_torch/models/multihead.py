@@ -19,7 +19,8 @@ gradients reach every head's parameters.
 
 Only the head family the checkpoints use is batchable (``heads_batchable``:
 no norms, ReLU, resamplers in ``_SUPPORTED_RESAMPLERS``, a linear finest
-level); anything else runs the sequential path in ``v2.py``.
+level), and none under ``remat``; anything else runs the sequential path
+in ``v2.py``.
 """
 
 from __future__ import annotations
@@ -49,11 +50,12 @@ def batched_heads_default() -> bool:
     return os.environ.get("MOGE_BATCHED_HEADS", "0") not in ("0", "false", "")
 
 
-def heads_batchable(cfgs: Sequence[Mapping[str, Any]]) -> bool:
+def heads_batchable(cfgs: Sequence[Mapping[str, Any]], remat: bool = False) -> bool:
     """True when there are at least two head configs, identical except for
-    the finest ``dim_out``, using only what the batched pass implements
-    (JAX ``heads_batchable`` with ``MOGE_BATCHED_HEADS`` on)."""
-    if len(cfgs) < 2:
+    the finest ``dim_out``, using only what the batched pass implements,
+    and the heads are not rematerialized (JAX ``heads_batchable`` with
+    ``MOGE_BATCHED_HEADS`` on)."""
+    if remat or len(cfgs) < 2:
         return False
     c0 = cfgs[0]
     n = len(c0["dim_res_blocks"])

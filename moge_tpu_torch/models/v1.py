@@ -97,14 +97,16 @@ class MoGeV1Head(nn.Module):
 
 
 class MoGeV1(nn.Module):
-    """Config-described MoGe-1 (the checkpoint's ``model_config`` schema)."""
+    """Config-described MoGe-1 (the checkpoint's ``model_config`` schema).
+    ``remat`` (training) checkpoints the backbone's blocks only, as the JAX
+    package's; ``normalize_config`` drops the key."""
 
     def __init__(self, encoder: str = "dinov2_vitb14", intermediate_layers: Union[int, Sequence[int]] = 4,
                  dim_proj: int = 512, dim_upsample: Sequence[int] = (256, 128, 128),
                  dim_times_res_block_hidden: int = 1, num_res_blocks: int = 1, remap_output: str = "linear",
                  res_block_norm: str = "group_norm", num_tokens_range: Sequence[int] = (1200, 2500),
                  last_res_blocks: int = 0, last_conv_channels: int = 32, last_conv_size: int = 1,
-                 mask_threshold: float = 0.5):
+                 mask_threshold: float = 0.5, remat: bool = False):
         super().__init__()
         vit = VIT_ARCHS[encoder]
         self.remap_output = remap_output
@@ -114,7 +116,7 @@ class MoGeV1(nn.Module):
             self.take_layers = tuple(range(vit.depth - intermediate_layers, vit.depth))
         else:
             self.take_layers = tuple(intermediate_layers)
-        self.backbone = DinoVisionTransformer(vit)
+        self.backbone = DinoVisionTransformer(vit, remat=remat)
         self.head = MoGeV1Head(len(self.take_layers), vit.embed_dim, [3, 1], dim_proj, dim_upsample,
                                dim_times_res_block_hidden, num_res_blocks, res_block_norm, last_res_blocks,
                                last_conv_channels, last_conv_size)

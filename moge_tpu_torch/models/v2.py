@@ -16,6 +16,12 @@ Two serving-mode options of the encoder, as in the JAX package:
 inputs, the ViT runs sequence-parallel, the rest replicated, every rank
 returns the whole result; ``parallel/sp.py``) and ``use_int8`` (W8A8 int8
 block projections; ``ops/quant.py``). Both are inference only.
+
+``MoGeV2(..., remat=True)`` (training, the JAX package's ``remat``) runs the
+ViT blocks and every residual block and resampler of the neck and the
+heads as activation checkpoints when grad mode is on, and turns batched
+heads off; the scale MLP is not rematerialized. ``MoGeModel`` drops the key
+from a config, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -66,20 +72,21 @@ class MoGeV2(nn.Module):
                  points_head: Optional[Dict[str, Any]] = None, mask_head: Optional[Dict[str, Any]] = None,
                  normal_head: Optional[Dict[str, Any]] = None, scale_head: Optional[Dict[str, Any]] = None,
                  remap_output: str = "linear", num_tokens_range=(1200, 3600),
-                 batched_heads: Optional[bool] = None, sp_group=None, use_int8: bool = False):
+                 batched_heads: Optional[bool] = None, sp_group=None, use_int8: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.remap_output = remap_output
         self.num_tokens_range = list(num_tokens_range)
-        self.encoder = DINOv2Encoder(**encoder, sp_group=sp_group, use_int8=use_int8)
-        self.neck = ConvStack(**neck)
+        self.encoder = DINOv2Encoder(**encoder, sp_group=sp_group, use_int8=use_int8, remat=remat)
+        self.neck = ConvStack(**neck, remat=remat)
         head_cfgs = []
         for name, cfg in (("points_head", points_head), ("normal_head", normal_head), ("mask_head", mask_head)):
             if cfg is not None:
-                setattr(self, name, ConvStack(**cfg))
+                setattr(self, name, ConvStack(**cfg, remat=remat))
                 head_cfgs.append(cfg)
         if batched_heads is None:
             batched_heads = batched_heads_default()
-        self.batched_heads = batched_heads and heads_batchable(head_cfgs)
+        self.batched_heads = batched_heads and heads_batchable(head_cfgs, remat)
         if scale_head is not None:
             self.scale_head = MLP(**scale_head)
 

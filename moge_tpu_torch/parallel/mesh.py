@@ -14,6 +14,16 @@ gradient accumulation. ``fsdp`` = 1 shards nothing (plain data
 parallelism) unless the run asks for the sharded path on groups of one
 (``Parallel.join(..., shard=True)``).
 
+A module built with ``remat`` keeps its activation checkpoints inside the
+units: each ViT block's checkpoint holds exactly its unit's call, and a
+neck's or head's checkpoints sit inside its ConvStack unit. In the
+backward FSDP2's pre-backward hook gathers a unit's parameters before its
+autograd nodes ask for their saved tensors, which runs the recompute on
+the gathered parameters; the recompute's forward hooks find the unit in
+its pre-backward state and neither gather nor free (FSDP2's own rule for
+checkpointing), and ``_drop_derived`` runs again on the recompute, which
+with grad mode on reads no cached weight.
+
 Sharded parameters, their gradients, the AdamW moments and the EMA are
 DTensors, gathered and cut by DTensor's own redistribution (``whole``,
 ``distribute_like``). It runs through the functional collectives, which
@@ -62,7 +72,9 @@ def _drop_derived(module: nn.Module, *_) -> None:
     """Forget the cached derived weights of a unit about to run. FSDP2
     gathers a unit's parameters into storage it frees after use and may
     reallocate at the same address, and it keeps their version counters:
-    the cache's key (version, address) cannot see the new values."""
+    the cache's key (version, address) cannot see the new values. Under
+    ``remat`` it runs again when a checkpoint recomputes a ViT block: the
+    cache is empty then, and dropping it again changes nothing."""
     from ..models._weights import drop_derived
 
     drop_derived(module)

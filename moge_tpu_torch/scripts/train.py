@@ -253,7 +253,9 @@ def command():
 
 def _build_module(config: Dict[str, Any], device: torch.device):
     """The config's ``model_version`` ('v1' or 'v2', default v2) as a training
-    module on ``device``, and the DINOv2 backbone inside it."""
+    module on ``device``, and the DINOv2 backbone inside it. Model keys
+    outside the version's known set (``remat`` among them) are dropped, as
+    the JAX command's ``MoGeModel`` and v1 ``normalize_config`` drop them."""
     version = config.get("model_version", "v2")
     with torch.device(device):
         if version == "v1":
@@ -262,9 +264,9 @@ def _build_module(config: Dict[str, Any], device: torch.device):
             module = MoGeV1(**normalize_config(config["model"]))
             return module, module.backbone
         if version == "v2":
-            from ..models.v2 import MoGeV2
+            from ..models.v2 import MoGeModel, MoGeV2
 
-            module = MoGeV2(**config["model"])
+            module = MoGeV2(**{k: v for k, v in config["model"].items() if k in MoGeModel._CONFIG_KEYS})
             return module, module.encoder.backbone
     raise ValueError(f"Unsupported model version: {version}")
 

@@ -101,12 +101,15 @@ def test_flash_attention_bwd_plain_matches_autograd():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_every_trainable_parameter_gets_a_gradient(dtype):
+def test_every_trainable_parameter_gets_a_gradient(dtype, remat):
     """loss.backward() on the training forward reaches every trainable
     parameter, also through the cast, folded and parity-expanded weights
-    that inference caches, and twice in a row after an in-place update."""
-    module = MoGeV2(**TINY_CONFIG).init_random(seed=0)
+    that inference caches, and twice in a row after an in-place update;
+    also when the blocks, residual blocks and resamplers run as activation
+    checkpoints (``remat``), which rebuild those weights in the backward."""
+    module = MoGeV2(**TINY_CONFIG, remat=remat).init_random(seed=0)
     image = _t(np.random.default_rng(0).uniform(0, 1, (2, 56, 70, 3)))
     trainable = {n for n, p in module.named_parameters() if p.requires_grad}
     assert trainable == {n for n, _ in module.named_parameters()} - {"encoder.backbone.mask_token"}

@@ -3,7 +3,8 @@ with the tiny MoGe-2 and synthetic datasets (``write_train_dataset``):
 the logs and checkpoints it writes, under the JAX command's file names and
 keys; the full-state checkpoint round trip and the step after a resume, bit
 for bit; two resumes from one checkpoint giving the same losses; gradient
-accumulation against one step on the concatenated batch; the XLA-only flags
+accumulation against one step on the concatenated batch; model keys no
+model reads (``remat`` among them) dropped, as JAX's command drops them; the XLA-only flags
 and parallel flags this run cannot honour, and a missing card, refused; the DINOv2 hub graft of
 ``--backbone_checkpoint``; and the learning rates after a resume against
 the JAX package's schedule at the restored update count."""
@@ -279,6 +280,23 @@ def test_vis_every_writes_the_pictures(train_config, tmp_path):
     _train(train_config, tmp_path, "--num_iterations", "1", "--vis_every", "1")
     assert sorted(p.name for p in (tmp_path / "vis" / "0").iterdir()) == \
         [f"{i}_{kind}" for i in range(2) for kind in ("gt.png", "image.jpg", "pred.png")]
+
+
+def test_unknown_model_keys_are_dropped_as_jax_does(train_config, tmp_path):
+    """A v2 config whose ``model`` block carries ``"remat": true`` and a key
+    no model reads builds and trains: the command builds MoGe-2 from the
+    known keys only, as the JAX command's ``MoGeModel`` does, so neither
+    package rematerializes. Its first step equals the plain config's, bit
+    for bit (the parameters, the EMA, AdamW's state and the logged loss)."""
+    cfg = json.loads(Path(train_config).read_text())
+    cfg["model"] = {**cfg["model"], "remat": True, "not_a_model_key": 1}
+    extra = tmp_path / "extra.json"
+    extra.write_text(json.dumps(cfg))
+    runs = [_train(path, tmp_path / name, "--num_iterations", "1", "--save_every", "100")
+            for name, path in (("plain", train_config), ("extra", extra))]
+    assert not any(getattr(m, "remat", False) for m in runs[1]["state"].module.modules())
+    _assert_same(*(snapshot_train_state(r["state"], r["gen"]) for r in runs), "extra model keys")
+    assert [s["total"] for s in runs[0]["steps"]] == [s["total"] for s in runs[1]["steps"]]
 
 
 @pytest.mark.parametrize("flag", [["--fsdp", "2"], ["--multihost"], ["--coordinator", "h:1"],
