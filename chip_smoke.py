@@ -2110,7 +2110,7 @@ def phase_panorama(card: str):
     from moge_tpu_torch.ops.resize import resize_2d
     from moge_tpu_torch.scripts.infer_panorama import infer_panorama
     from moge_tpu_torch.utils.geometry_numpy import uv_map_numpy
-    from moge_tpu_torch.utils.tools import timeit
+    from moge_tpu_torch.utils.tools import span_summary, timeit
     from torch_tiny_config import make_points_perspective, smooth_distance, smooth_field_views
 
     config = get_preset("moge-2-vitl-normal")["config"]
@@ -2176,6 +2176,13 @@ def phase_panorama(card: str):
                              split_resolution=PANO_SPLIT, merge_size=PANO_MERGE)
         torch.cuda.synchronize()
         counts = read_counts()
+        # the merge's level spans (CUDA events) in a pass of their own, which a
+        # host-only profiler turns on: the stage times above carry no profiler
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            pano.merge_panorama_depth(*PANO_MERGE, out["distances"], out["view_masks"], extrinsics, intrinsics,
+                                      solver="cg")
+            torch.cuda.synchronize()
+        spans = span_summary()
         if counts != expect:
             raise AssertionError(f"panorama {label}: kernel launches {counts}, expected {expect} per 12-view forward")
         variants = check_variants("panorama", f"panorama {label}", counts)
@@ -2191,8 +2198,8 @@ def phase_panorama(card: str):
         if not bool((out["depth"] > 0).all()) or not torch.equal(out["views"], card_views):
             raise AssertionError(f"panorama {label}: non-positive depth, or views other than the split's")
         stage_ms = {s: timeit.history(s)[-1] * 1e3 for s in stages}
-        level_ms = {f"{lw}x{lh}": timeit.history(f"panorama merge {lw}x{lh}")[-1] * 1e3 for lw, lh in levels}
-        cg_ms = {f"{lw}x{lh}": timeit.history(f"panorama cg {lw}x{lh}")[-1] * 1e3 for lw, lh in levels}
+        level_ms = {f"{lw}x{lh}": spans[f"moge.panorama.merge.{lw}x{lh}"]["device_s"] * 1e3 for lw, lh in levels}
+        cg_ms = {f"{lw}x{lh}": spans[f"moge.panorama.cg.{lw}x{lh}"]["device_s"] * 1e3 for lw, lh in levels}
         iterations = {f"{lw}x{lh}": pano.CG_ITERATIONS[(lw, lh)] for lw, lh in levels}
         timings = {"stages_ms": stage_ms, "merge_levels_ms": level_ms, "cg_levels_ms": cg_ms,
                    "cg_iterations": iterations}
@@ -2200,7 +2207,8 @@ def phase_panorama(card: str):
             f"{out['depth'].min().item():.3f}..{out['depth'].max().item():.3f}, launches {counts}, variants "
             f"{variants}")
         log(f"[panorama] {label}: wall ms {json.dumps({k: round(v, 2) for k, v in stage_ms.items()})}, merge by "
-            f"level {json.dumps({k: round(v, 2) for k, v in level_ms.items()})}, of it CG "
+            f"level (CUDA events, a pass of its own) {json.dumps({k: round(v, 2) for k, v in level_ms.items()})}, "
+            f"of it CG "
             f"{json.dumps({k: round(v, 2) for k, v in cg_ms.items()})}, CG iterations per level "
             f"{json.dumps(iterations)} ({card})")
 
@@ -2273,7 +2281,7 @@ def phase_eval(card: str):
     from moge_tpu_torch.models.presets import get_preset
     from moge_tpu_torch.models.v2 import MoGeModel
     from moge_tpu_torch.scripts import eval_baseline
-    from moge_tpu_torch.utils.tools import flatten_nested_dict, import_file_as_module, timeit
+    from moge_tpu_torch.utils.tools import flatten_nested_dict, import_file_as_module, span_summary
     from torch_tiny_config import write_benchmark
 
     config = get_preset("moge-2-vitl-normal")["config"]
@@ -2331,12 +2339,15 @@ def phase_eval(card: str):
         torch.cuda.empty_cache()
         metrics_s = []
         for _ in range(2):
-            solved = len(timeit.history("eval solve"))
             t0 = time.perf_counter()
             card_metrics, _ = metrics.compute_metrics(pred, sample, device=DEVICE)
             torch.cuda.synchronize()
             metrics_s.append(time.perf_counter() - t0)
-            solve_s = sum(timeit.history("eval solve")[solved:])
+        # the solves' spans in a pass of their own, which a host-only profiler turns on
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            metrics.compute_metrics(pred, sample, device=DEVICE)
+            torch.cuda.synchronize()
+        solve_s = span_summary()["moge.eval.solve"]["host_s"]
         t0 = time.perf_counter()
         cpu_metrics, _ = metrics.compute_metrics(pred, sample, device="cpu")
         cpu_s = time.perf_counter() - t0

@@ -24,7 +24,7 @@ import torch
 
 from ..ops import alignment as al
 from ..utils.geometry_numpy import intrinsics_to_fov_numpy, masked_nearest_resize_numpy
-from ..utils.tools import key_average, timeit
+from ..utils.tools import key_average, span
 
 __all__ = ["compute_metrics", "boundary_f1", "SOLVES"]
 
@@ -98,9 +98,9 @@ def boundary_f1(pred: np.ndarray, gt: np.ndarray, mask: np.ndarray, radius: int 
 
 def _solve(fn: Callable, device: torch.device, *arrays: np.ndarray, dtype=np.float32):
     """``fn`` on the arrays as ``dtype`` tensors on ``device``; the result
-    back on the host as floats (0-d) or numpy arrays. Counted in ``SOLVES``,
-    timed in ``timeit.history("eval solve")``."""
-    with timeit("eval solve", verbose=False):
+    back on the host as floats (0-d) or numpy arrays. Counted in ``SOLVES``;
+    the span ``moge.eval.solve`` (``utils.tools.span``)."""
+    with span("moge.eval.solve", device=True):
         out = fn(*(torch.as_tensor(np.asarray(a, dtype), device=device) for a in arrays))
         SOLVES[device.type] += 1
         return tuple(_host(o) for o in out) if isinstance(out, tuple) else _host(out)

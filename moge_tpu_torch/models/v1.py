@@ -25,6 +25,7 @@ from torch import nn
 from ..ops.geometry import depth_map_to_point_map, intrinsics_from_focal_center, normalized_view_plane_uv
 from ..ops.resize import resize_2d
 from ..ops.solvers import recover_focal_shift
+from ..utils.tools import span
 from .dinov2 import VIT_ARCHS, DinoVisionTransformer
 from .modules import (IMAGENET_MEAN, IMAGENET_STD, Conv1x1, Conv3x3, ConvTranspose2x, ResidualConvBlock, conv2d,
                       init_params)
@@ -127,14 +128,30 @@ class MoGeV1(nn.Module):
         """``image`` (B, H, W, 3) RGB in [0, 1]. Returns 'points' (B, H, W, 3)
         and the raw 'mask' (B, H, W), fp32; the network runs in ``dtype``."""
         _, img_h, img_w, _ = image.shape
-        factor = ((num_tokens * 14 ** 2) / (img_h * img_w)) ** 0.5
-        resized_w, resized_h = int(img_w * factor), int(img_h * factor)
-        image = resize_2d(image.float(), (resized_h, resized_w), mode="bicubic", antialias=True)
-        image = (image - self.image_mean.view(3)) / self.image_std.view(3)
-        patch_h, patch_w = resized_h // 14, resized_w // 14
-        image_14 = resize_2d(image, (patch_h * 14, patch_w * 14), mode="bilinear", antialias=True)
-        features = self.backbone(image_14, self.take_layers, dtype)
-        points, mask = self.head(features, resized_h, resized_w, patch_h, patch_w)
+        points, mask = self.decode(image, num_tokens, dtype)
+        return self.epilogue(points, mask, img_h, img_w)
+
+    def decode(self, image: torch.Tensor, num_tokens: int, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The resize to the token grid, the backbone and the head (spans
+        ``moge.resize``, ``moge.encoder``, ``moge.decoder``; the last two
+        open no range): the raw points (B, h, w, 3) and mask (B, h, w, 1) at
+        the resized size, in ``dtype``."""
+        _, img_h, img_w, _ = image.shape
+        with span("moge.resize", device=True):
+            factor = ((num_tokens * 14 ** 2) / (img_h * img_w)) ** 0.5
+            resized_w, resized_h = int(img_w * factor), int(img_h * factor)
+            image = resize_2d(image.float(), (resized_h, resized_w), mode="bicubic", antialias=True)
+            image = (image - self.image_mean.view(3)) / self.image_std.view(3)
+            patch_h, patch_w = resized_h // 14, resized_w // 14
+            image_14 = resize_2d(image, (patch_h * 14, patch_w * 14), mode="bilinear", antialias=True)
+        with span("moge.encoder", device=True, host_range=False):
+            features = self.backbone(image_14, self.take_layers, dtype)
+        with span("moge.decoder", device=True, host_range=False):
+            points, mask = self.head(features, resized_h, resized_w, patch_h, patch_w)
+        return points, mask
+
+    def epilogue(self, points: torch.Tensor, mask: torch.Tensor, img_h: int, img_w: int) -> Dict[str, torch.Tensor]:
+        """``decode``'s raw maps resized to (img_h, img_w) and remapped, in fp32."""
         points = resize_2d(points.float(), (img_h, img_w), mode="bilinear")
         mask = resize_2d(mask.float(), (img_h, img_w), mode="bilinear")
         return {"points": remap_points(points, self.remap_output), "mask": mask[..., 0]}
@@ -201,42 +218,52 @@ class MoGeModel:
               use_fp16: bool = True) -> Dict[str, torch.Tensor]:
         """``image``: (H, W, 3) or (B, H, W, 3) RGB in [0, 1] (NCHW accepted).
         Returns 'points', 'depth', 'intrinsics' and the bool 'mask' (raw head
-        output > ``mask_threshold``). ``use_fp16`` selects bf16 compute."""
-        if not isinstance(image, torch.Tensor):
-            image = torch.as_tensor(np.asarray(image))
-        image = image.to(self.device, torch.float32)
-        omit_batch_dim = image.dim() == 3
-        if omit_batch_dim:
-            image = image[None]
-        if image.shape[-1] != 3:
-            image = image.movedim(-3, -1)
-        h, w = image.shape[-3], image.shape[-2]
-        aspect_ratio = w / h
-        if num_tokens is None:
-            lo, hi = self.module.num_tokens_range
-            num_tokens = int(lo + (resolution_level / 9) * (hi - lo))
-        out = self.module(image, num_tokens, self.dtype if use_fp16 else torch.float32)
-        points = out["points"]
-        mask = out["mask"] > self.module.mask_threshold
+        output > ``mask_threshold``). ``use_fp16`` selects bf16 compute. Its
+        stages are spans (``utils.tools.span``) inside ``moge.infer``:
+        ``moge.upload``, ``moge.resize``, ``moge.encoder``, ``moge.decoder``
+        (the head), ``moge.post`` (epilogue and camera) and, inside it,
+        ``moge.solve``."""
+        with span("moge.infer", device=True):
+            with span("moge.upload"):
+                if not isinstance(image, torch.Tensor):
+                    image = torch.as_tensor(np.asarray(image))
+                image = image.to(self.device, torch.float32)
+            omit_batch_dim = image.dim() == 3
+            if omit_batch_dim:
+                image = image[None]
+            if image.shape[-1] != 3:
+                image = image.movedim(-3, -1)
+            h, w = image.shape[-3], image.shape[-2]
+            aspect_ratio = w / h
+            if num_tokens is None:
+                lo, hi = self.module.num_tokens_range
+                num_tokens = int(lo + (resolution_level / 9) * (hi - lo))
+            raw_points, raw_mask = self.module.decode(image, num_tokens, self.dtype if use_fp16 else torch.float32)
+            with span("moge.post", device=True):
+                out = self.module.epilogue(raw_points, raw_mask, h, w)
+                points = out["points"]
+                mask = out["mask"] > self.module.mask_threshold
 
-        if fov_x is None:
-            focal, shift = recover_focal_shift(points, mask)
-        else:
-            fov = torch.deg2rad(torch.as_tensor(fov_x, dtype=torch.float32, device=points.device))
-            focal = (aspect_ratio / (1 + aspect_ratio ** 2) ** 0.5 / torch.tan(fov / 2)).expand(points.shape[:-3])
-            _, shift = recover_focal_shift(points, mask, focal=focal)
-        fx = focal / 2 * (1 + aspect_ratio ** 2) ** 0.5 / aspect_ratio
-        fy = focal / 2 * (1 + aspect_ratio ** 2) ** 0.5
-        intrinsics = intrinsics_from_focal_center(fx, fy, 0.5, 0.5)
-        depth = points[..., 2] + shift[..., None, None]
-        if force_projection:
-            points = depth_map_to_point_map(depth, intrinsics)
-        else:  # the shift moves z only
-            points = torch.cat([points[..., :2], depth[..., None]], dim=-1)
-        if apply_mask:
-            points = torch.where(mask[..., None], points, torch.inf)
-            depth = torch.where(mask, depth, torch.inf)
-        result = {"points": points, "intrinsics": intrinsics, "depth": depth, "mask": mask}
-        if omit_batch_dim:
-            result = {k: v[0] for k, v in result.items()}
-        return result
+                with span("moge.solve", device=True):
+                    if fov_x is None:
+                        focal, shift = recover_focal_shift(points, mask)
+                    else:
+                        fov = torch.deg2rad(torch.as_tensor(fov_x, dtype=torch.float32, device=points.device))
+                        focal = (aspect_ratio / (1 + aspect_ratio ** 2) ** 0.5 / torch.tan(fov / 2)).expand(
+                            points.shape[:-3])
+                        _, shift = recover_focal_shift(points, mask, focal=focal)
+                fx = focal / 2 * (1 + aspect_ratio ** 2) ** 0.5 / aspect_ratio
+                fy = focal / 2 * (1 + aspect_ratio ** 2) ** 0.5
+                intrinsics = intrinsics_from_focal_center(fx, fy, 0.5, 0.5)
+                depth = points[..., 2] + shift[..., None, None]
+                if force_projection:
+                    points = depth_map_to_point_map(depth, intrinsics)
+                else:  # the shift moves z only
+                    points = torch.cat([points[..., :2], depth[..., None]], dim=-1)
+                if apply_mask:
+                    points = torch.where(mask[..., None], points, torch.inf)
+                    depth = torch.where(mask, depth, torch.inf)
+            result = {"points": points, "intrinsics": intrinsics, "depth": depth, "mask": mask}
+            if omit_batch_dim:
+                result = {k: v[0] for k, v in result.items()}
+            return result

@@ -37,6 +37,7 @@ from torch import nn
 from ..ops.geometry import depth_map_to_point_map, intrinsics_from_focal_center
 from ..ops.resize import resize_2d
 from ..ops.solvers import recover_focal_shift
+from ..utils.tools import span
 from .modules import MLP, ConvStack, DINOv2Encoder, init_params, make_level_uv
 from .multihead import apply_heads_batched, batched_heads_default, heads_batchable
 
@@ -95,20 +96,23 @@ class MoGeV2(nn.Module):
         """Encoder + neck + heads at decoder resolution. ``image_14``: (B,
         14*base_h, 14*base_w, 3) RGB in [0, 1]. Returns raw maps
         'points_raw'/'normal_raw' (B, 16bh, 16bw, 3), 'mask_raw' logits
-        (B, 16bh, 16bw, 1) and 'metric_scale' (B,), in ``dtype``."""
+        (B, 16bh, 16bw, 1) and 'metric_scale' (B,), in ``dtype``. Spans
+        ``moge.encoder`` and ``moge.decoder``, with no range (``span``)."""
         batch = image_14.shape[0]
-        features, cls_token = self.encoder(image_14, base_h, base_w, dtype)
-        uvs = make_level_uv(base_h, base_w, 5, aspect_ratio, batch, dtype, image_14.device)
-        in_features = [torch.cat([features, uvs[0]], dim=-1), *uvs[1:]]
-        neck_features = self.neck(in_features)
-        names = [name for name in _HEADS if hasattr(self, name)]
-        if self.batched_heads:  # one grouped pass over all heads
-            raws = apply_heads_batched([getattr(self, name) for name in names], neck_features, dtype)
-        else:  # heads one after another
-            raws = [getattr(self, name)(neck_features)[-1] for name in names]
-        out: Dict[str, torch.Tensor] = {name.replace("_head", "_raw"): raw for name, raw in zip(names, raws)}
-        if hasattr(self, "scale_head"):
-            out["metric_scale"] = torch.exp(self.scale_head(cls_token)[..., 0])
+        with span("moge.encoder", device=True, host_range=False):
+            features, cls_token = self.encoder(image_14, base_h, base_w, dtype)
+        with span("moge.decoder", device=True, host_range=False):
+            uvs = make_level_uv(base_h, base_w, 5, aspect_ratio, batch, dtype, image_14.device)
+            in_features = [torch.cat([features, uvs[0]], dim=-1), *uvs[1:]]
+            neck_features = self.neck(in_features)
+            names = [name for name in _HEADS if hasattr(self, name)]
+            if self.batched_heads:  # one grouped pass over all heads
+                raws = apply_heads_batched([getattr(self, name) for name in names], neck_features, dtype)
+            else:  # heads one after another
+                raws = [getattr(self, name)(neck_features)[-1] for name in names]
+            out: Dict[str, torch.Tensor] = {name.replace("_head", "_raw"): raw for name, raw in zip(names, raws)}
+            if hasattr(self, "scale_head"):
+                out["metric_scale"] = torch.exp(self.scale_head(cls_token)[..., 0])
         return out
 
     def forward(self, image: torch.Tensor, num_tokens: int,
@@ -167,13 +171,14 @@ def postprocess(output: Dict[str, torch.Tensor], aspect_ratio: float,
     mask_binary = (mask.float() > mask_threshold) if mask is not None else None
     if points is not None:
         solve_mask = mask_binary if use_mask_for_solve else None
-        if fov_x is None:
-            focal, shift = recover_focal_shift(points, solve_mask)
-        else:
-            fov = torch.deg2rad(torch.as_tensor(fov_x, dtype=torch.float32, device=points.device))
-            focal = aspect_ratio / (1 + aspect_ratio ** 2) ** 0.5 / torch.tan(fov / 2)
-            focal = focal.expand(points.shape[:-3])
-            _, shift = recover_focal_shift(points, solve_mask, focal=focal)
+        with span("moge.solve", device=True):
+            if fov_x is None:
+                focal, shift = recover_focal_shift(points, solve_mask)
+            else:
+                fov = torch.deg2rad(torch.as_tensor(fov_x, dtype=torch.float32, device=points.device))
+                focal = aspect_ratio / (1 + aspect_ratio ** 2) ** 0.5 / torch.tan(fov / 2)
+                focal = focal.expand(points.shape[:-3])
+                _, shift = recover_focal_shift(points, solve_mask, focal=focal)
         fx = focal / 2 * (1 + aspect_ratio ** 2) ** 0.5 / aspect_ratio
         fy = focal / 2 * (1 + aspect_ratio ** 2) ** 0.5
         intrinsics = intrinsics_from_focal_center(fx, fy, 0.5, 0.5)
@@ -242,27 +247,35 @@ class MoGeModel:
               fov_x: Optional[Union[Number, torch.Tensor]] = None,
               use_fp16: bool = True) -> Dict[str, torch.Tensor]:
         """``image``: (H, W, 3) or (B, H, W, 3) RGB in [0, 1] (NCHW accepted).
-        ``use_fp16`` selects bf16 compute; False runs fp32."""
-        if not isinstance(image, torch.Tensor):
-            image = torch.as_tensor(np.asarray(image))
-        image = image.to(self.device, torch.float32)
-        omit_batch_dim = image.dim() == 3
-        if omit_batch_dim:
-            image = image[None]
-        if image.shape[-1] != 3:
-            image = image.movedim(-3, -1)
-        h, w = image.shape[-3], image.shape[-2]
-        aspect_ratio = w / h
-        if num_tokens is None:
-            lo, hi = self.module.num_tokens_range
-            num_tokens = int(lo + (resolution_level / 9) * (hi - lo))
-        base_h, base_w = base_token_grid(num_tokens, aspect_ratio)
-        dtype = self.dtype if use_fp16 else torch.float32
+        ``use_fp16`` selects bf16 compute; False runs fp32. Its stages are
+        spans (``utils.tools.span``) inside ``moge.infer``: ``moge.upload``,
+        ``moge.resize``, ``moge.encoder``, ``moge.decoder`` (neck, heads,
+        scale MLP), ``moge.post`` (epilogue and ``postprocess``) and, inside
+        it, ``moge.solve``."""
+        with span("moge.infer", device=True):
+            with span("moge.upload"):
+                if not isinstance(image, torch.Tensor):
+                    image = torch.as_tensor(np.asarray(image))
+                image = image.to(self.device, torch.float32)
+            omit_batch_dim = image.dim() == 3
+            if omit_batch_dim:
+                image = image[None]
+            if image.shape[-1] != 3:
+                image = image.movedim(-3, -1)
+            h, w = image.shape[-3], image.shape[-2]
+            aspect_ratio = w / h
+            if num_tokens is None:
+                lo, hi = self.module.num_tokens_range
+                num_tokens = int(lo + (resolution_level / 9) * (hi - lo))
+            base_h, base_w = base_token_grid(num_tokens, aspect_ratio)
+            dtype = self.dtype if use_fp16 else torch.float32
 
-        image_14 = resize_2d(image, (base_h * 14, base_w * 14), mode="bilinear", antialias=True)
-        raw = self.module.decode(image_14, base_h, base_w, aspect_ratio, dtype)
-        full = apply_epilogue(raw, h, w, self.module.remap_output)
-        out = postprocess(full, aspect_ratio, fov_x, force_projection, apply_mask)
-        if omit_batch_dim:
-            out = {k: v[0] for k, v in out.items()}
-        return out
+            with span("moge.resize", device=True):
+                image_14 = resize_2d(image, (base_h * 14, base_w * 14), mode="bilinear", antialias=True)
+            raw = self.module.decode(image_14, base_h, base_w, aspect_ratio, dtype)
+            with span("moge.post", device=True):
+                full = apply_epilogue(raw, h, w, self.module.remap_output)
+                out = postprocess(full, aspect_ratio, fov_x, force_projection, apply_mask)
+            if omit_batch_dim:
+                out = {k: v[0] for k, v in out.items()}
+            return out

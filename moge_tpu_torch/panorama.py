@@ -23,7 +23,7 @@ from scipy.sparse import csr_array, vstack
 from scipy.sparse.linalg import lsmr
 
 from .utils.geometry_numpy import intrinsics_from_fov_numpy, uv_map_numpy
-from .utils.tools import timeit
+from .utils.tools import span
 
 __all__ = ["create_icosahedron_vertices", "extrinsics_look_at", "get_panorama_cameras",
            "spherical_uv_to_directions", "directions_to_spherical_uv", "uv_to_pixel", "remap_bilinear",
@@ -343,8 +343,8 @@ def merge_panorama_depth(
     "cg" = conjugate gradient on the normal equations in torch on the
     device (same system, matrix-free stencils). Above 256 pixels a side the
     solve starts from the 2x coarser merge, upsampled bilinearly. Each
-    level's wall time goes to ``timeit.history("panorama merge WxH")``, its
-    CG's to ``"panorama cg WxH"``."""
+    level is the span ``moge.panorama.merge.WxH`` (``utils.tools.span``,
+    with device time), its CG ``moge.panorama.cg.WxH``."""
     if solver not in ("lsmr", "cg"):
         raise ValueError(f"unknown merge solver {solver!r}")
     distance_maps = distance_maps.float()
@@ -354,7 +354,7 @@ def merge_panorama_depth(
                                        solver=solver)
     else:
         init = None
-    with timeit(f"panorama merge {width}x{height}", verbose=False):
+    with span(f"moge.panorama.merge.{width}x{height}", device=True):
         return _merge_level(width, height, distance_maps, pred_masks, extrinsics, intrinsics, solver, init)
 
 
@@ -396,7 +396,7 @@ def _merge_level(width: int, height: int, distance_maps: torch.Tensor, pred_mask
         wy = grad_y_mask.float()
         wy_eff = wy[:, :width].clone()
         wy_eff[:, 0] += wy[:, width]
-        with timeit(f"panorama cg {width}x{height}", verbose=False):
+        with span(f"moge.panorama.cg.{width}x{height}", device=True):
             x, taken = _solve_merge_cg(gx.float(), gy[:, :width].float(), lap.float(), grad_x_mask.float(), wy_eff,
                                        laplacian_mask.float(), x0)
             CG_ITERATIONS[(width, height)] = int(taken)

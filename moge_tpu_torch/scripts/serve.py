@@ -16,10 +16,24 @@ Design:
     mask as fp16 with a saturating cast (finite values stay finite, inf
     stays inf), and a finalizer thread waits for the copy and answers the
     requests while the dispatcher already runs the next batch;
-  * ``warmup`` drives every bucket once before traffic.
+  * ``warmup`` drives every bucket once before traffic;
+  * counters in ``stats``, always on: requests, batches, batched images,
+    errors, and the seconds summed of each request's wait in the queue
+    (``queue_wait_s``: from its ``queue.put`` to its batch's dispatch), of
+    the dispatcher's host time per batch (``dispatch_s``: one
+    ``_run_group``) and of each batch's device time (``batch_device_s``:
+    CUDA events at the dispatch's start and after its readback's copies,
+    read by the finalizer once it has waited for them). While a profiler
+    records, the stages are spans (``utils.tools.span``):
+    ``moge.serve.collect``, ``moge.serve.dispatch`` (the batch's id as the
+    range's argument; CUDA events around it, the batch's device time),
+    ``moge.serve.drain`` (the wait for the previous finalizer) and
+    ``moge.serve.finalize``. Client threads open no span.
 
 Endpoints:
   GET  /healthz          liveness + model/device info + batching stats
+                         (with the means of the batch, queue wait, dispatch
+                         and batch device time)
   POST /v1/infer         body: raw image bytes (anything cv2 decodes);
                          query: maps=depth,normal,mask,points,intrinsics
                                 fov_x=<degrees>  format=json|npz
@@ -33,6 +47,7 @@ from __future__ import annotations
 import base64
 import concurrent.futures as cf
 import io
+import itertools
 import json
 import queue
 import threading
@@ -44,6 +59,8 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+
+from ..utils.tools import span
 
 __all__ = ["InferenceBatcher", "make_handler", "create_server", "command", "main"]
 
@@ -60,6 +77,7 @@ class _Request:
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[Dict[str, np.ndarray]] = None
     error: Optional[str] = None
+    t_put: float = 0.0  # perf_counter at its queue.put
 
 
 def _next_bucket(n: int, cap: int) -> int:
@@ -88,8 +106,12 @@ class InferenceBatcher:
         self.max_wait_s = max_wait_ms / 1e3
         self.use_fp16 = use_fp16
         self.queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
-        self.stats = {"requests": 0, "batches": 0, "batched_images": 0, "errors": 0}
-        self._stats_lock = threading.Lock()  # "requests" is counted on the client threads
+        self.stats = {"requests": 0, "batches": 0, "batched_images": 0, "errors": 0,
+                      "queue_wait_s": 0.0, "dispatch_s": 0.0, "batch_device_s": 0.0}
+        self._batch_ids = itertools.count()
+        # "requests" is counted on the client threads; every other key on one
+        # thread alone ("batch_device_s" on the finalizer's, the rest on the dispatcher's)
+        self._stats_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -100,6 +122,7 @@ class InferenceBatcher:
         req = _Request(image=image, fov_x=fov_x, maps=tuple(maps))
         with self._stats_lock:
             self.stats["requests"] += 1
+        req.t_put = time.perf_counter()
         self.queue.put(req)
         if not req.event.wait(timeout_s):
             raise TimeoutError("inference timed out")
@@ -109,6 +132,10 @@ class InferenceBatcher:
 
     # -- dispatch side -------------------------------------------------------
     def _collect(self):
+        with span("moge.serve.collect"):
+            return self._collect_batch()
+
+    def _collect_batch(self):
         first = self.queue.get()
         if first is None:
             return None
@@ -130,6 +157,18 @@ class InferenceBatcher:
     def _run_group(self, group):
         """One ``infer`` call for a group of one fov_x; returns the finalizer
         that waits for the readback and answers the requests."""
+        t0 = time.perf_counter()
+        with span("moge.serve.dispatch", device=True, args={"batch": next(self._batch_ids)}):
+            finalize = self._dispatch(group, t0)
+        self.stats["dispatch_s"] += time.perf_counter() - t0
+        return finalize
+
+    def _dispatch(self, group, t0: float):
+        self.stats["queue_wait_s"] += sum(t0 - r.t_put for r in group)
+        cuda = self.model.device.type == "cuda"
+        start = torch.cuda.Event(enable_timing=True) if cuda else None
+        if cuda:
+            start.record()
         n = len(group)
         bucket = _next_bucket(n, self.max_batch)
         images = np.stack([r.image for r in group])
@@ -143,17 +182,19 @@ class InferenceBatcher:
         needed = set().union(*(set(r.maps) for r in group)) | {"intrinsics"}
         host = {k: (_sat16(v) if k in ("depth", "normal", "mask") else v).to("cpu", non_blocking=True)
                 for k, v in out.items() if k in needed}
-        done = torch.cuda.Event() if self.model.device.type == "cuda" else None
-        if done is not None:
+        done = torch.cuda.Event(enable_timing=True) if cuda else None
+        if cuda:
             done.record()
 
         def finalize():
-            if done is not None:
-                done.synchronize()
-            out_np = {k: v.float().numpy() for k, v in host.items()}
-            for i, r in enumerate(group):
-                r.result = {k: v[i] for k, v in out_np.items()}
-                r.event.set()
+            with span("moge.serve.finalize"):
+                if cuda:
+                    done.synchronize()
+                    self.stats["batch_device_s"] += start.elapsed_time(done) / 1e3
+                out_np = {k: v.float().numpy() for k, v in host.items()}
+                for i, r in enumerate(group):
+                    r.result = {k: v[i] for k, v in out_np.items()}
+                    r.event.set()
 
         self.stats["batches"] += 1
         self.stats["batched_images"] += n
@@ -177,7 +218,8 @@ class InferenceBatcher:
                 fut, pgroup = pending
                 pending = None
                 try:
-                    fut.result()
+                    with span("moge.serve.drain"):
+                        fut.result()
                 except Exception as e:  # surface to the waiting requests
                     self._fail_group(pgroup, e)
 
@@ -286,7 +328,11 @@ def make_handler(batcher: InferenceBatcher, model_info: Dict[str, Any]):
             if urlparse(self.path).path != "/healthz":
                 return self._send_json(404, {"error": "not found"})
             stats = dict(batcher.stats)
-            stats["mean_batch"] = stats["batched_images"] / stats["batches"] if stats["batches"] else 0.0
+            batches, images = stats["batches"], stats["batched_images"]
+            stats["mean_batch"] = images / batches if batches else 0.0
+            stats["mean_queue_wait_s"] = stats["queue_wait_s"] / images if images else 0.0
+            stats["mean_dispatch_s"] = stats["dispatch_s"] / batches if batches else 0.0
+            stats["mean_batch_device_s"] = stats["batch_device_s"] / batches if batches else 0.0
             self._send_json(200, {"status": "ok", **model_info, "stats": stats})
 
         def do_POST(self):

@@ -1,22 +1,31 @@
 """General utilities (reference moge/utils/tools.py): nested-dict metric
 averaging, flatten/unflatten, a timer that waits for the card, a profiler
-trace of a block of code, and module import by path. Copies of the JAX
-package's ``moge_tpu/utils/tools.py``, the trace by ``torch.profiler``."""
+trace of a block of code, the program's spans, and module import by path.
+Copies of the JAX package's ``moge_tpu/utils/tools.py``, the trace by
+``torch.profiler``.
+
+Spans (``span``, ``span_summary``) name the program's stages on a
+profiler's timeline and keep their host and device times. They
+are off unless a ``torch.profiler`` session is recording: off, a span reads
+one global and returns a shared no-op context, and nothing is stored."""
 
 from __future__ import annotations
 
 import importlib.util
 import math
 import sys
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
 from typing import Any, Callable, Dict, Generator, List, Optional, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["catch_exception", "key_average", "flatten_nested_dict", "unflatten_nested_dict", "timeit",
-           "profile_trace", "import_file_as_module", "traverse_nested_dict_keys"]
+           "profile_trace", "span", "span_summary", "import_file_as_module",
+           "traverse_nested_dict_keys"]
 
 
 def catch_exception(fn: Callable) -> Callable:
@@ -122,9 +131,10 @@ class timeit:
 
 
 class profile_trace:
-    """A ``torch.profiler`` trace of the block (the host's ops, and the card's
-    kernels when a card is present), written into ``log_dir`` as a Chrome
-    trace (``trace.json``, for Perfetto or chrome://tracing):
+    """A ``torch.profiler`` trace of the block (the host's ops on every
+    thread, a server's dispatcher among them, the program's spans, and the
+    card's kernels when a card is present), written into ``log_dir`` as a
+    Chrome trace (``trace.json``, for Perfetto or chrome://tracing):
 
         with profile_trace("/tmp/moge_trace"):
             model.infer(image)
@@ -138,7 +148,7 @@ class profile_trace:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-        self.prof = profile(activities=activities)
+        self.prof = profile(activities=activities, experimental_config=_all_threads_config())
         self.prof.__enter__()
         return self
 
@@ -148,6 +158,111 @@ class profile_trace:
         self.prof.export_chrome_trace(str(self.path))
         print(f"profiler trace written to {self.path}")
         return False
+
+
+def _all_threads_config():
+    """The profiler config that records the ranges of every thread, those
+    started before the profiler included; None where torch lacks it."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+# closed spans: (name, parent's name, host ns, (start, end) CUDA events or None)
+_SPANS: List[tuple] = []
+_OPEN = threading.local()  # each thread's stack of open span names
+
+
+class _Span:
+    __slots__ = ("name", "device", "args", "host_range", "parent", "range", "events", "t0")
+
+    def __init__(self, name: str, device: bool, args: Optional[Dict[str, Any]], host_range: bool):
+        self.name, self.device, self.args, self.host_range = name, device, args, host_range
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.range = None
+        if self.host_range:
+            # an operator's range, not record_function's user annotation: the
+            # profiler copies an annotation onto the device's timeline, where its
+            # extent (gaps and all) reads as busy; an operator's range takes the
+            # kernels launched inside it outside any other operator instead
+            fast = torch._C._profiler._RecordFunctionFast
+            self.range = fast(self.name) if self.args is None else fast(self.name, keyword_values=self.args)
+            self.range.__enter__()
+        self.events = None
+        if self.device and torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        host_ns = time.perf_counter_ns() - self.t0
+        if self.events is not None:
+            self.events[1].record()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _OPEN.stack.pop()
+        if _autograd_profiler._is_profiler_enabled:  # not one the profiler's stop held up
+            _SPANS.append((self.name, self.parent, host_ns, self.events))
+        return False
+
+
+def span(name: str, device: bool = False, args: Optional[Dict[str, Any]] = None, host_range: bool = True):
+    """A named stage of the program, as a context manager.
+
+    Off unless a ``torch.profiler`` session is recording (on any thread).
+    On, it opens a host range ``name`` (``args`` its keyword values), so
+    the stage lies on the trace's timeline beside the kernels, and on
+    closing, if the profiler still records, stores its host time
+    (``perf_counter_ns``) and the name of the span it opened inside; with
+    ``device``, also a pair of CUDA events on the current stream around it
+    (when CUDA is in use). ``span_summary`` reads the store.
+
+    ``host_range=False`` stores the times and opens no range: for a stage
+    that a range of its own caller wraps to read its kernels' device time
+    from the trace (the benchmark's ``pb.encoder``, ``pb.decode``), where an
+    operator range inside would take the kernels that the ctypes wrappers
+    launch outside any operator, and with them move that reading."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, device, args, host_range)
+
+
+def span_summary() -> Dict[str, Dict[str, Any]]:
+    """The spans closed since the last call, by name: ``count``, ``host_s``,
+    ``device_s`` (the CUDA events' elapsed time, 0 without events) and
+    ``parent`` (the span they were opened inside, first seen). Synchronizes
+    the card to resolve the events, then empties the store."""
+    spans = _SPANS[:]
+    del _SPANS[:len(spans)]
+    if any(events is not None for *_, events in spans):
+        torch.cuda.synchronize()
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, parent, host_ns, events in spans:
+        s = out.setdefault(name, {"count": 0, "host_s": 0.0, "device_s": 0.0, "parent": parent})
+        s["count"] += 1
+        s["host_s"] += host_ns / 1e9
+        if events is not None:
+            s["device_s"] += events[0].elapsed_time(events[1]) / 1e3
+    return out
 
 
 def import_file_as_module(path: Union[str, Path], module_name: Optional[str] = None):

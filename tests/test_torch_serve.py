@@ -4,7 +4,8 @@ requests each as its own batch-1 ``infer`` would, pads to power-of-two
 buckets, groups by fov_x and hands an error to every waiting request; one
 HTTP round-trip whose JSON body has the keys (and values) of the JAX
 server's response encoder; ``/healthz`` stats; ``--int8`` refused for v1; the
-serving modules import with jax, cv2 and click blocked."""
+serving modules import with jax, cv2 and click blocked; the counters in
+``stats`` and the dispatcher's spans in a profile of every thread."""
 
 import io
 import json
@@ -140,6 +141,55 @@ def test_an_error_reaches_every_waiting_request(model):
     assert not batcher._thread.is_alive()
 
 
+def test_stats_count_queue_wait_and_dispatch_time_per_batch(model, monkeypatch):
+    rec = Recording(model)
+    batcher = serve.InferenceBatcher(rec, HW, HW, NUM_TOKENS, max_batch=4, max_wait_ms=50, use_fp16=False)
+    seconds = []
+    clock = serve.time.perf_counter
+    dispatch = batcher._dispatch
+
+    def timed(group, t0):
+        out = dispatch(group, t0)
+        seconds.append(clock() - t0)
+        return out
+
+    monkeypatch.setattr(batcher, "_dispatch", timed)
+    try:
+        _concurrently(batcher, _images(6, 5), [None] * 6)
+    finally:
+        batcher.stop()
+    stats = batcher.stats
+    assert stats["batches"] == len(rec.calls) == len(seconds) and stats["batched_images"] == 6
+    assert stats["dispatch_s"] >= sum(seconds) > 0  # one entry per batch, each its whole _run_group
+    assert stats["queue_wait_s"] >= 0 and stats["batch_device_s"] == 0.0
+
+
+def test_dispatcher_spans_are_in_a_profile_of_every_thread(model):
+    from torch.profiler import ProfilerActivity, profile
+
+    from moge_tpu_torch.utils.tools import _all_threads_config, span_summary
+
+    batcher = serve.InferenceBatcher(model, HW, HW, NUM_TOKENS, max_batch=4, max_wait_ms=50, use_fp16=False)
+    span_summary()
+    try:  # the dispatcher thread starts before the profiler, as a server's does
+        with profile(activities=[ProfilerActivity.CPU], experimental_config=_all_threads_config()) as prof:
+            _concurrently(batcher, _images(5, 6), [None] * 5)
+    finally:
+        batcher.stop()
+    events = [e for e in prof.events() if e.name.startswith("moge.")]
+    dispatch = [e for e in events if e.name == "moge.serve.dispatch"]
+    assert dispatch and {e.name for e in events} >= {"moge.serve.collect", "moge.serve.finalize", "moge.infer"}
+    for e in events:
+        if e.name == "moge.infer":  # inside its dispatch, on the dispatcher's thread
+            assert any(d.thread == e.thread and d.time_range.start <= e.time_range.start
+                       and e.time_range.end <= d.time_range.end for d in dispatch)
+    summary = span_summary()
+    assert summary["moge.serve.dispatch"]["count"] == summary["moge.infer"]["count"] == batcher.stats["batches"]
+    assert summary["moge.infer"]["parent"] == "moge.serve.dispatch"
+    assert summary["moge.serve.dispatch"]["host_s"] > 0
+    assert summary["moge.serve.dispatch"]["device_s"] == 0.0  # no card: no device time
+
+
 def test_sat16_keeps_finite_values_finite_and_inf_inf():
     v = torch.tensor([1e6, -1e6, float("inf"), 0.5])
     got = serve._sat16(v).float()
@@ -216,6 +266,9 @@ def test_http_npz_healthz_and_bad_requests(server_url):
     stats = health["stats"]
     assert stats["requests"] >= 1 and stats["batched_images"] >= 1
     assert stats["mean_batch"] == stats["batched_images"] / stats["batches"]
+    assert stats["mean_queue_wait_s"] == stats["queue_wait_s"] / stats["batched_images"] >= 0
+    assert stats["mean_dispatch_s"] == stats["dispatch_s"] / stats["batches"] > 0
+    assert stats["mean_batch_device_s"] == stats["batch_device_s"] == 0.0  # no card: no device time
     for url, body, code in ((f"{server_url}/v1/infer", b"not an image", 400),
                             (f"{server_url}/v1/infer?maps=bogus", _png(2), 400),
                             (f"{server_url}/nope", _png(2), 404)):

@@ -1,7 +1,9 @@
 """The port's host utilities (moge_tpu_torch/utils, the CLI's and the
 server's writers and the EXR reader, geometry, mesh export and
 colorization) against the JAX package's moge_tpu.utils on seeded inputs:
-equal arrays and equal bytes; and the profiler trace."""
+equal arrays and equal bytes; the profiler trace; the program's spans (off
+without a profiler, counted and nested with one, on threads that started
+before it, and ``infer``'s stages for MoGe-1 and MoGe-2)."""
 
 import io
 
@@ -147,3 +149,150 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     events = json.loads(trace.path.read_text())["traceEvents"]
     assert trace.path == tmp_path / "trace" / "trace.json"
     assert any("mm" in str(e.get("name", "")) for e in events)
+
+
+def test_profile_trace_holds_the_spans_of_a_thread_started_before_it(tmp_path):
+    import json
+    import threading
+
+    import torch
+
+    from moge_tpu_torch.utils.tools import profile_trace, span, span_summary
+
+    go, done = threading.Event(), threading.Event()
+
+    def worker():
+        go.wait()
+        with span("moge.test.worker"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
+        done.set()
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    with profile_trace(tmp_path / "trace") as trace:
+        go.set()
+        assert done.wait(60)
+    thread.join()
+    names = {e.get("name") for e in json.loads(trace.path.read_text())["traceEvents"]}
+    assert "moge.test.worker" in names
+    assert span_summary()["moge.test.worker"]["count"] == 1
+
+
+def test_a_span_without_a_profiler_enters_no_range_and_stores_nothing(monkeypatch):
+    import torch
+
+    from moge_tpu_torch.utils import tools
+
+    tools.span_summary()
+
+    def no_range(*args, **kwargs):
+        raise AssertionError("a range entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", no_range)
+    with tools.span("moge.test.off", device=True), tools.span("moge.test.off.inner"):
+        with tools.span("moge.test.off.bare", device=True, host_range=False):
+            pass
+    assert tools.span("a") is tools.span("b")  # one shared no-op context
+    assert tools.span_summary() == {}
+
+
+def test_span_summary_counts_nests_and_empties():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from moge_tpu_torch.utils.tools import span, span_summary
+
+    span_summary()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with span("moge.test.outer", device=True):
+                with span("moge.test.inner", args={"batch": 7}):
+                    with span("moge.test.bare", device=True, host_range=False):
+                        torch.ones(8) + 1
+    summary = span_summary()
+    assert summary["moge.test.outer"]["count"] == 3 and summary["moge.test.outer"]["parent"] is None
+    assert summary["moge.test.inner"]["count"] == 3 and summary["moge.test.inner"]["parent"] == "moge.test.outer"
+    assert summary["moge.test.bare"]["count"] == 3 and summary["moge.test.bare"]["parent"] == "moge.test.inner"
+    assert summary["moge.test.outer"]["host_s"] >= summary["moge.test.inner"]["host_s"] >= \
+        summary["moge.test.bare"]["host_s"] > 0
+    assert summary["moge.test.outer"]["device_s"] == 0.0  # no CUDA in use: no events
+    assert span_summary() == {}
+    ranges = [e for e in prof.events() if e.name.startswith("moge.test.")]
+    assert sorted({e.name for e in ranges}) == ["moge.test.inner", "moge.test.outer"]  # the bare span has no range
+    outer = [e for e in ranges if e.name == "moge.test.outer"]
+    for e in ranges:
+        if e.name == "moge.test.inner":
+            assert any(o.time_range.start <= e.time_range.start and e.time_range.end <= o.time_range.end
+                       for o in outer)
+
+
+def test_spans_from_many_threads_are_all_stored():
+    import sys
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from moge_tpu_torch.utils.tools import span, span_summary
+
+    span_summary()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            def worker():
+                for _ in range(300):
+                    with span("moge.test.thread"), span("moge.test.bare", host_range=False):
+                        pass
+
+            threads = [threading.Thread(target=worker) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    summary = span_summary()
+    assert summary["moge.test.thread"]["count"] == summary["moge.test.bare"]["count"] == 16 * 300
+    assert summary["moge.test.bare"]["parent"] == "moge.test.thread"
+
+
+INFER_STAGES = {"moge.infer": None, "moge.upload": "moge.infer", "moge.resize": "moge.infer",
+                "moge.encoder": "moge.infer", "moge.decoder": "moge.infer", "moge.post": "moge.infer",
+                "moge.solve": "moge.post"}
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_infer_stages_are_spans(version):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from moge_tpu_torch.models import v1, v2
+    from moge_tpu_torch.utils.tools import span_summary
+    from torch_tiny_config import TINY_CONFIG
+
+    if version == "v2":
+        model = v2.MoGeModel(TINY_CONFIG, "cpu", torch.float32).init_random(seed=0)
+    else:
+        tiny_v1 = {"encoder": "dinov2_vitt14", "intermediate_layers": 4, "dim_proj": 32,
+                   "dim_upsample": [32, 16, 16], "dim_times_res_block_hidden": 2, "num_res_blocks": 1,
+                   "remap_output": "exp", "res_block_norm": "group_norm", "last_res_blocks": 1,
+                   "last_conv_channels": 32, "last_conv_size": 1}
+        model = v1.MoGeModel(tiny_v1, "cpu", torch.float32).init_random(seed=0)
+    image = np.random.default_rng(0).uniform(0, 1, (2, 42, 56, 3)).astype(np.float32)
+    want = model.infer(torch.from_numpy(image), num_tokens=12, use_fp16=False)
+    span_summary()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            got = model.infer(torch.from_numpy(image), num_tokens=12, use_fp16=False)
+    summary = span_summary()
+    assert {name: summary[name]["parent"] for name in INFER_STAGES} == INFER_STAGES
+    # the encoder and the decoder open no range: a range of the caller's around
+    # them (the benchmark's pb.encoder, pb.decode) keeps the kernels it had
+    ranges = {e.name for e in prof.events() if e.name.startswith("moge.")}
+    assert ranges == set(INFER_STAGES) - {"moge.encoder", "moge.decoder"}
+    assert all(summary[name]["count"] == 2 for name in INFER_STAGES)
+    assert all(summary[name]["host_s"] <= summary["moge.infer"]["host_s"] for name in INFER_STAGES)
+    for key, value in want.items():  # the spans change no answer
+        assert torch.equal(got[key], value), key
