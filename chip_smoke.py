@@ -34,6 +34,10 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    could take, from the bytes it must move and its operations at the peak
    rate of their type) and the time of one PyTorch call that computes the
    same function, where there is one;
+3c. the camera solve K5 (``recover_focal_shift``, one launch) against its
+   plain version on the card at batch 1 (480x640) and batch 8 (518^2),
+   free focal with a mask: errors, the launch count per call, medians by
+   CUDA events of both and the host's time per call of K5's route;
 3a. the truncated align's forms at the four v2 loss shapes (label type A,
    batch 2), full rows: dense on K4, ``events`` and ``prefix``
    (``MOGE_ALIGN_TRUNC_IMPL``), scalar truncation and at patch_16 a
@@ -159,7 +163,9 @@ On every counted run of the paths below, each K1 launch must have taken the
 vec16 variant (``norm.VARIANT_LAUNCHES``), each K3 and K3-grouped launch a
 pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
 launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
-K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``).
+K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``); every
+inference run must have made its camera solve as one K5 launch
+(``solvers.LAUNCHES``).
 
 Prints a ``[time] <phase> <seconds>`` line after each phase and the total
 before the card's line, a JSON line with the kernels' numbers, the inference,
@@ -169,8 +175,8 @@ card's name and power limit, and last
 summed over every counted run of the paths above; ``launches_by_path``
 gives, per path, the count per run and the number of runs (a run is one
 forward for ``infer``, ``batched_heads``, ``moge1_infer`` and ``giant``, one
-artifact run for ``export``, one
-batch for ``serve``, one dense solve for ``align_forms``, one grad step
+run of the post-processed artifact for ``export`` and of the raw forward's
+for ``export_raw``, one batch for ``serve``, one dense solve for ``align_forms``, one grad step
 for ``train_events`` and ``train_prefix``, one 12-view panorama for
 ``panorama``, one sample for
 ``eval``, one step for ``train``, one remat grad step for ``train_remat``,
@@ -185,7 +191,8 @@ K2b-dq, K2b-dkv, K3, K3-grouped and T1 add ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms``, the same calls' device time
 from torch.profiler (K2b's ``backward_device_ms``: the whole backward; T6
 ``device_ms`` alone); K1 adds ``host_us``/``library_host_us``, the host's
-time per call; ``variants_by_path`` (K1, K2, K2b-dq and K2b-dkv together,
+time per call, and K5 ``host_us``; K5's ``max_abs_err`` is its largest
+relative error (focal ratio, shift over mean |z|); ``variants_by_path`` (K1, K2, K2b-dq and K2b-dkv together,
 K3, K3-grouped)
 gives each path's launches per run by kernel variant;
 ``infer_launches`` is the count per ``infer`` forward, as before. No CPU fallback: without a GPU, or without the package
@@ -357,6 +364,10 @@ SP_TIMEOUT = 600  # seconds for one run of ranks
 # batch), the drift held to tests/test_quant.py's bound; SERVE_REQUESTS through the micro-batcher
 INT8_GEMMS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
 INT8_ROWS = (1370, 8 * 3601)
+# K5 against the plain camera solve: |focal ratio - 1| and |shift
+# difference| / mean |z| (tests/test_torch_kernels_cuda.py::SOLVE_REL)
+SOLVE_REL = 2e-5
+SOLVE_CASES = ((1, 480, 640), (8, 518, 518))  # (batch, H, W): the folder path's map, a serving batch
 INT8_RUNS = ((1369, 1), (3600, 8))
 INT8_DRIFT = 0.05
 INT8_REPEATS = 3
@@ -1042,6 +1053,54 @@ def phase_kernels_train():
     return results
 
 
+def phase_camera_solve() -> tuple:
+    """K5 against the plain camera solve on the card (``SOLVE_CASES``, free
+    focal, a mask keeping ~70% of the pixels): errors, launches per call,
+    medians by CUDA events, and the host's time per call of K5's route (100
+    calls enqueued back to back, before the synchronise). Returns K5's
+    phase-3 cases (error: the larger of the two relative errors) and the
+    cases' records."""
+    import torch
+
+    from moge_tpu_torch.ops import solvers
+    from torch_tiny_config import camera_point_maps
+
+    dev = torch.device(DEVICE)
+    cases = []
+    for b, h, w in SOLVE_CASES:
+        points, mask, _ = camera_point_maps(b, h, w, SEED + b)
+        points, mask = torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev)
+        before = solvers.LAUNCHES
+        got = solvers.recover_focal_shift(points, mask)
+        launches = solvers.LAUNCHES - before
+        want = solvers._recover_plain(points, mask, None, (64, 64), 30)
+        z_mean = points[..., 2].abs().mean((1, 2))
+        focal_err = (got[0] / want[0] - 1).abs().max().item()
+        shift_err = ((got[1] - want[1]).abs() / z_mean).max().item()
+        if launches != 1 or not max(focal_err, shift_err) <= SOLVE_REL:
+            raise RuntimeError(f"camera solve B={b} {h}x{w}: {launches} launches, focal {focal_err:.2e}, "
+                               f"shift {shift_err:.2e} (limit {SOLVE_REL})")
+        ms = cuda_ms(lambda: solvers.recover_focal_shift(points, mask))
+        plain_ms = cuda_ms(lambda: solvers._recover_plain(points, mask, None, (64, 64), 30), iters=5, warmup=1)
+        synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            solvers.recover_focal_shift(points, mask)
+        host_us = (time.perf_counter() - t0) * 1e4
+        synchronize()
+        n = 64 * 64
+        bound_ms, bound_by = bound(bytes_moved=b * n * (3 * 4 + 1) + n * 12 + 8 * b)
+        cases.append({"batch": b, "hw": [h, w], "samples": n, "launches_per_call": launches,
+                      "focal_rel_err": focal_err, "shift_rel_err": shift_err, "ms": ms, "plain_ms": plain_ms,
+                      "host_us": host_us, "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"[camera_solve] B={b} {h}x{w}: K5 {ms:.4f} ms ({launches} launch, host {host_us:.1f} us a call), "
+            f"plain {plain_ms:.3f} ms; focal {focal_err:.2e}, shift {shift_err:.2e} of mean |z|; "
+            f"bound {bound_ms:.5f} ms ({bound_by})")
+    k5 = [(max(c["focal_rel_err"], c["shift_rel_err"]), c["ms"], c["plain_ms"], None, (c["bound_ms"], c["bound_by"]),
+           {"host_us": c["host_us"]}) for c in cases]
+    return k5, cases
+
+
 @contextlib.contextmanager
 def align_form(impl: str):
     """Select a truncated-align form for the ``with`` block: set
@@ -1492,14 +1551,15 @@ def _vit_launches(backbone: str, layers) -> dict:
     depth = VIT_ARCHS[backbone].depth
     n_take = layers if isinstance(layers, int) else len(layers)
     return {"layer_norm": 2 * depth + n_take, "flash_attention": depth, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "conv3x3": 0, "conv3x3_grouped": 0, "dense_align": 0,
+            "flash_attention_dkv": 0, "conv3x3": 0, "conv3x3_grouped": 0, "dense_align": 0, "camera_solve": 0,
             **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_launches(config, batched_heads: bool = False) -> dict:
     """Kernel launches per inference forward implied by a MoGe-2 config: per
     ConvStack two 3x3 convs per res block and one per resampler; with
-    batched heads the heads' convs run once each as K3-grouped."""
+    batched heads the heads' convs run once each as K3-grouped; one camera
+    solve (K5) in the post-processing, for the whole batch."""
     from moge_tpu_torch.models.multihead import heads_batchable
 
     counts = _vit_launches(config["encoder"]["backbone"], config["encoder"]["intermediate_layers"])
@@ -1513,24 +1573,25 @@ def expected_launches(config, batched_heads: bool = False) -> dict:
         counts["conv3x3_grouped"] = convs(heads[0])
     else:
         counts["conv3x3"] += sum(convs(h) for h in heads)
+    counts["camera_solve"] = 1
     return counts
 
 
 def expected_v1_launches(config) -> dict:
     """Kernel launches per MoGe-1 forward: per upsample stage one 3x3 conv
     and two per res block; per output block (points, mask) the 3x3 conv_in,
-    two per res block, and conv_out when it is 3x3."""
+    two per res block, and conv_out when it is 3x3; one camera solve (K5)."""
     counts = _vit_launches(config["encoder"], config.get("intermediate_layers", 4))
     stages = len(config.get("dim_upsample", [256, 128, 128])) * (1 + 2 * config.get("num_res_blocks", 1))
     outputs = 2 * (1 + 2 * config.get("last_res_blocks", 0) + (config.get("last_conv_size", 1) == 3))
-    counts["conv3x3"] = stages + outputs
+    counts.update(conv3x3=stages + outputs, camera_solve=1)
     return counts
 
 
 def expected_train_launches(config, loss_config, version: str = "v2", remat: bool = False) -> dict:
     """Kernel launches per train step implied by a MoGe-2 (or, ``version``
-    'v1', MoGe-1) config and a loss config: one forward (K1, K2, K3), the
-    flash backward per block (K2b-dq, K2b-dkv; K1 and K3 backward in plain
+    'v1', MoGe-1) config and a loss config: one forward (K1, K2, K3; no
+    camera solve), the flash backward per block (K2b-dq, K2b-dkv; K1 and K3 backward in plain
     PyTorch), and one K4 per truncated alignment solve: the global loss's,
     and the local losses' (one batched solve when they share trunc and
     align_resolution, else one each). With ``remat`` the backward runs the
@@ -1550,7 +1611,7 @@ def expected_train_launches(config, loss_config, version: str = "v2", remat: boo
     local = [spec.get("params", {}) for spec in entries.values() if spec["function"] == "affine_invariant_local_loss"]
     shared = len(local) >= 2 and len({(p.get("trunc", 1.0), p.get("align_resolution", 32)) for p in local}) == 1
     n_global = sum(spec["function"] == "affine_invariant_global_loss" for spec in entries.values())
-    counts.update(flash_attention_dq=depth, flash_attention_dkv=depth,
+    counts.update(flash_attention_dq=depth, flash_attention_dkv=depth, camera_solve=0,
                   dense_align=n_global + (1 if shared else len(local)))
     if remat:
         counts["layer_norm"] += 2 * depth
@@ -1561,11 +1622,11 @@ def expected_train_launches(config, loss_config, version: str = "v2", remat: boo
 
 
 def reset_counts():
-    from moge_tpu_torch.ops import alignment, attention, conv, norm
+    from moge_tpu_torch.ops import alignment, attention, conv, norm, solvers
     from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling
 
     norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
-    conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = 0
+    conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = solvers.LAUNCHES = 0
     conv.VARIANT_LAUNCHES.update(dict.fromkeys(conv.VARIANT_LAUNCHES, 0))
     attention.VARIANT_LAUNCHES.update(dict.fromkeys(attention.VARIANT_LAUNCHES, 0))
     attention.BWD_VARIANT_LAUNCHES.update(dict.fromkeys(attention.BWD_VARIANT_LAUNCHES, 0))
@@ -1575,12 +1636,13 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from moge_tpu_torch.ops import alignment, attention, conv, norm
+    from moge_tpu_torch.ops import alignment, attention, conv, norm, solvers
     from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling
 
     return {"layer_norm": norm.LAUNCHES, "flash_attention": attention.LAUNCHES,
             "flash_attention_dq": attention.DQ_LAUNCHES, "flash_attention_dkv": attention.DKV_LAUNCHES,
             "conv3x3": conv.LAUNCHES, "conv3x3_grouped": conv.GROUPED_LAUNCHES, "dense_align": alignment.LAUNCHES,
+            "camera_solve": solvers.LAUNCHES,
             "exp_flash_softmax": exp_flash_softmax.LAUNCHES, "exp_vpu_ceiling": exp_vpu_ceiling.LAUNCHES,
             **{f"exp_dense_{k}": v for k, v in exp_dense_pallas.LAUNCHES.items()}}
 
@@ -1691,9 +1753,9 @@ def phase_export(card: str, model):
     masks hold, intrinsics within EXPORT_INTRINSICS_TOL, masks agreeing on
     EXPORT_MASK_AGREE of the pixels; the largest elementwise difference and
     whether the bits are equal, logged), its launches per run (counted under
-    ``export``, each on its Hopper variant); then the raw bf16 forward's
-    artifact against ``MoGeV2.forward`` at MODEL_L2_RTOL, counted the same
-    way; export seconds, artifact MB and the artifact's warm latency against
+    ``export``, each on its Hopper variant, one K5 for the solve); then the
+    raw bf16 forward's artifact against ``MoGeV2.forward`` at MODEL_L2_RTOL,
+    counted the same way under ``export_raw`` (no solve); export seconds, artifact MB and the artifact's warm latency against
     live ``infer`` in alternating turns."""
     import numpy as np
     import torch
@@ -1703,23 +1765,24 @@ def phase_export(card: str, model):
     from torch_tiny_config import make_points_perspective
 
     t_phase = time.perf_counter()
-    expect = expected_launches(get_preset("moge-2-vitl-normal")["config"])
+    per_infer = expected_launches(get_preset("moge-2-vitl-normal")["config"])
+    expect = {"export": per_infer, "export_raw": dict(per_infer, camera_solve=0)}
     make_points_perspective(model.module)
     image = torch.from_numpy(np.random.default_rng(SEED + 9).uniform(0, 1, (1, EXPORT_HW, EXPORT_HW, 3))
                              .astype(np.float32)).to(DEVICE)
     stats = {}
 
-    def counted(label, program):
+    def counted(path, label, program):
         reset_counts()
         out = program(image)
         synchronize()
         counts = read_counts()
-        if counts != expect:
-            raise AssertionError(f"[export] {label}: launches {counts}, expected {expect} per run")
-        check_variants("export", label, counts)
+        if counts != expect[path]:
+            raise AssertionError(f"[export] {label}: launches {counts}, expected {expect[path]} per run")
+        check_variants(path, label, counts)
         return out
 
-    for form, post in (("infer", True), ("raw", False)):
+    for form, post, path in (("infer", True, "export"), ("raw", False, "export_raw")):
         t0 = time.perf_counter()
         blob = export_program(model, EXPORT_HW, EXPORT_HW, EXPORT_TOKENS, with_postprocess=post,
                               use_fp16=None if post else True)
@@ -1729,7 +1792,7 @@ def phase_export(card: str, model):
         program(image)  # warm-up
         synchronize()
         load_s = time.perf_counter() - t0
-        got = counted(f"{form} artifact", program)
+        got = counted(path, f"{form} artifact", program)
         if post:
             want = model.infer(image, num_tokens=EXPORT_TOKENS)
             both = got["mask"] & want["mask"]
@@ -1753,7 +1816,7 @@ def phase_export(card: str, model):
         identical = all(torch.equal(got[k], want[k]) for k in want)
         log(f"[export] {form} artifact: export {export_s:.1f} s, {len(blob) / 1e6:.1f} MB, load + warm-up "
             f"{load_s:.1f} s; against live {'infer' if post else 'MoGeV2.forward'}: {errs}, largest elementwise "
-            f"difference {largest:.3e}, bit-identical {identical}; launches per run {expect} ({card})")
+            f"difference {largest:.3e}, bit-identical {identical}; launches per run {expect[path]} ({card})")
         if not ok:
             raise AssertionError(f"[export] {form} artifact off live: {errs}")
         stats[form] = {"export_s": export_s, "mb": len(blob) / 1e6, "load_s": load_s, "errs": errs,
@@ -1771,7 +1834,7 @@ def phase_export(card: str, model):
         del program, blob
     stats["seconds"] = time.perf_counter() - t_phase
     log(f"[export] phase {stats['seconds']:.1f} s")
-    return (expect, 2), stats
+    return {path: (counts, 1) for path, counts in expect.items()}, stats
 
 
 def synchronize():
@@ -4037,6 +4100,7 @@ KERNELS = [
     ("conv3x3", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:132"),
     ("conv3x3_grouped", "moge_tpu_torch/csrc/conv3x3.cu", "moge_tpu/ops/conv.py:304"),
     ("dense_align", "moge_tpu_torch/csrc/dense_align.cu", "moge_tpu/ops/alignment.py:90"),
+    ("camera_solve", "moge_tpu_torch/csrc/camera_solve.cu", "moge_tpu/ops/solvers.py:37"),
     ("exp_flash_softmax", "moge_tpu_torch/csrc/exp_flash_softmax.cu", "tools/exp_flash_softmax.py:27"),
     ("exp_vpu_ceiling", "moge_tpu_torch/csrc/exp_vpu_ceiling.cu", "tools/exp_vpu_ceiling.py:33"),
     ("exp_dense_v1", "moge_tpu_torch/csrc/exp_dense.cu", "tools/exp_dense_pallas.py:37"),
@@ -4046,10 +4110,11 @@ KERNELS = [
 ]
 # which phase-3 case carries the reported time: the 1369-token shape (bf16;
 # for K3 and K3-grouped 296^2 64->64 with ReLU and residual, at B0 = 1 for
-# K3-grouped), for K4 the global loss's L = 6912;
+# K3-grouped), for K4 the global loss's L = 6912, for K5 batch 1 at 480x640;
 # for the probes T1 base at N = 3601, T2 align, T3-T6 the global shape
 REPORT_CASE = {"layer_norm": 0, "flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-               "conv3x3": 7, "conv3x3_grouped": 8, "dense_align": 0, "exp_flash_softmax": 0, "exp_vpu_ceiling": 0,
+               "conv3x3": 7, "conv3x3_grouped": 8, "dense_align": 0, "camera_solve": 0, "exp_flash_softmax": 0,
+               "exp_vpu_ceiling": 0,
                "exp_dense_v1": 0, "exp_dense_v1_unroll": 0, "exp_dense_v2": 0, "exp_dense_bf16": 0}
 
 
@@ -4087,6 +4152,7 @@ def main(argv=None) -> int:
         print(card)
         return 0
     kernel_results = {**timed("kernels", phase_kernels), **timed("kernels_train", phase_kernels_train)}
+    kernel_results["camera_solve"], camera_solve = timed("camera_solve", phase_camera_solve)
     # each path is driven with the counters set to 0 just before each of its
     # runs and read just after; every run of a path launches the same counts
     launches = {}  # path -> (launches per run, runs)
@@ -4097,7 +4163,8 @@ def main(argv=None) -> int:
     kernel_results.update(probe_results)
     seq, launches["infer"], latencies = timed("slice", phase_slice, card)
     timed("parity", phase_parity)
-    launches["export"], export_stats = timed("export", phase_export, card, seq)
+    export_launches, export_stats = timed("export", phase_export, card, seq)
+    launches.update(export_launches)
     bat, launches["batched_heads"], batched_ms = timed("batched", phase_batched, card, seq)
     del seq
     launches["serve"], serve_stats = timed("serve", phase_serve, card, bat, launches["batched_heads"][0])
@@ -4146,7 +4213,8 @@ def main(argv=None) -> int:
                       "moge1_infer_ms": moge1_ms, "panorama": panorama_stats,
                       "eval": eval_stats, "train_steps": train_steps, "train_cli": train_cli_stats,
                       "train_v1": train_v1_stats, "parallel": parallel_stats, "giant": giant_stats,
-                      "probes": probe_tables, "align_forms": align_stats, "train_remat": remat_stats}))
+                      "probes": probe_tables, "align_forms": align_stats, "train_remat": remat_stats,
+                      "camera_solve": camera_solve}))
     log(f"[time] total {time.perf_counter() - started:.1f}")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
-"""Tensor ops of the port: resampling, geometry, camera solvers, the
-alignment solvers and the three kernel-backed ops (LayerNorm, flash
-attention, 3x3 replicate conv). Importing the package registers the kernels
-as the dispatcher ops ``torch.ops.moge.{layer_norm, flash_attention,
-conv3x3}`` (``_build.define_op``).
+"""Tensor ops of the port: resampling, geometry, the alignment solvers and
+the four kernel-backed ops (LayerNorm, flash attention, 3x3 replicate conv,
+the camera solve). Importing the package registers the kernels as the
+dispatcher ops ``torch.ops.moge.{layer_norm, flash_attention, conv3x3,
+camera_solve}`` (``_build.define_op``).
 
 The names are the JAX package's ``moge_tpu.ops``, with one difference:
 attention is ``flash_attention`` (kernel K2 on CUDA tensors, which raises

@@ -6,21 +6,38 @@ Recovers the focal and z-shift of an affine-invariant point map by solving
     f(s) = sum_i w_i <proj_i, uv_i> / sum_i w_i |proj_i|^2   (closed form)
 
 on a 64x64 legacy-nearest downsample with a fixed 30-iteration scalar
-Levenberg-Marquardt loop, batched over images, on the tensors' device. The
-JAX package differentiates the residual with ``jax.jvp``; here dr/ds is
-written out analytically. Accept and damping rules are the JAX package's.
+Levenberg-Marquardt loop, batched over images. The JAX package
+differentiates the residual with ``jax.jvp``; here dr/ds is written out
+analytically. Accept and damping rules are the JAX package's.
+
+``recover_focal_shift`` runs kernel K5 (``csrc/camera_solve.cu``: one block
+per image, the gather, the downsample and the whole LM loop in one launch,
+no host synchronisation) for CUDA tensors and the plain version
+(``_recover_plain``: ``solve_optimal_focal_shift`` / ``solve_optimal_shift``
+on the downsampled map) for CPU tensors. K5 is also the dispatcher op
+``moge::camera_solve(points, mask, focal, out_h, out_w, iters)``, registered
+when this module is imported (CUDA implementation the launch, CPU
+implementation the plain version, fake implementation two (B,) outputs), so
+``torch.export`` records the solve as one node. The samples' uv and source
+pixels come from a table built once per (H, W, downsample) and device on the
+host, exactly as the plain path takes them, and copied from pinned memory.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 
+from . import _build
 from .geometry import normalized_view_plane_uv
 from .resize import resize_2d
 
 __all__ = ["recover_focal_shift", "solve_optimal_focal_shift", "solve_optimal_shift"]
+
+LAUNCHES = 0  # K5 launches made by recover_focal_shift (never by the plain version)
 
 _EPS = 1e-12
 
@@ -96,17 +113,12 @@ def solve_optimal_shift(uv: torch.Tensor, points: torch.Tensor, focal: torch.Ten
     return _lm_minimize_shift(residual, torch.zeros_like(z[:, 0]), iters)
 
 
-def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                        focal: Optional[torch.Tensor] = None,
-                        downsample_size: Tuple[int, int] = (64, 64),
-                        iters: int = 30) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(focal, shift), each of shape (...), from an affine point map
-    ``points`` (..., H, W, 3), an optional bool ``mask`` (..., H, W) and an
-    optional known ``focal`` (...). Focal is relative to half the image
-    diagonal. Items with fewer than 2 valid pixels return (1, 0)."""
-    *batch_shape, height, width, _ = points.shape
-    pts = points.reshape(-1, height, width, 3).float()
-    n_items = pts.shape[0]
+def _recover_plain(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[torch.Tensor],
+                   downsample_size: Tuple[int, int], iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: (focal, shift), each (B,), of ``points`` (B, H, W, 3),
+    ``mask`` (B, H, W) or None and ``focal`` (B,) or None."""
+    n_items, height, width, _ = points.shape
+    pts = points.float()
     uv = normalized_view_plane_uv(width, height, dtype=torch.float32, device=points.device)
 
     pts_lr = resize_2d(pts, downsample_size, mode="nearest")
@@ -114,8 +126,7 @@ def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = Non
     if mask is None:
         w_lr = torch.ones(pts_lr.shape[:-1], dtype=torch.float32, device=points.device)
     else:
-        m = mask.reshape(-1, height, width).float()
-        w_lr = (resize_2d(m, downsample_size, mode="nearest", channel_last=False) > 0).float()
+        w_lr = (resize_2d(mask.float(), downsample_size, mode="nearest", channel_last=False) > 0).float()
 
     n_valid = w_lr.sum((-2, -1))
     # keep the solve NaN-free for degenerate items: weight-0 points get z = 1
@@ -130,11 +141,133 @@ def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = Non
     if focal is None:
         shift, est_focal = solve_optimal_focal_shift(flat_uv, flat_pts, flat_w, iters)
     else:
-        est_focal = torch.as_tensor(focal, dtype=torch.float32, device=points.device).reshape(-1)
-        est_focal = est_focal.expand(n_items)
+        est_focal = focal
         shift = solve_optimal_shift(flat_uv, flat_pts, est_focal, flat_w, iters)
 
     degenerate = n_valid < 2
-    est_focal = torch.where(degenerate, 1.0, est_focal)
-    shift = torch.where(degenerate, 0.0, shift)
+    return torch.where(degenerate, 1.0, est_focal), torch.where(degenerate, 0.0, shift)
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def sample_table(height: int, width: int, out_h: int, out_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The legacy-nearest samples of an (height, width) map as the plain
+    version takes them, on the host: their uv, (N, 2) fp32 (the grid in
+    float64, rounded once), and their flat source pixel y * width + x, (N,)
+    int32, N = out_h * out_w in row-major order."""
+    uv = normalized_view_plane_uv(width, height, dtype=torch.float32)
+    pixel = torch.arange(height * width, dtype=torch.float64).reshape(height, width)
+    uv = resize_2d(uv, (out_h, out_w), mode="nearest").reshape(-1, 2)
+    pixel = resize_2d(pixel, (out_h, out_w), mode="nearest", channel_last=False).reshape(-1).to(torch.int32)
+    return uv.contiguous(), pixel.contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(height: int, width: int, out_h: int, out_w: int,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sample_table`` on ``device``, once per shape, by a copy from pinned
+    memory that does not block the host (on the current stream, which K5's
+    launches share)."""
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in sample_table(height, width, out_h, out_w))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """K5's library and its entry point, typed once."""
+    lib = _build.load("camera_solve")
+    fn = lib.moge_camera_solve
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[torch.Tensor]) -> None:
+    """What ``moge::camera_solve`` takes: a contiguous fp32 (B, H, W, 3) map,
+    a contiguous bool (B, H, W) mask or None, an fp32 (B,) focal or None, all
+    on one device."""
+    if points.dim() != 4 or points.shape[-1] != 3:
+        raise ValueError(f"camera_solve takes a (B, H, W, 3) point map, got {tuple(points.shape)}")
+    if points.dtype != torch.float32:
+        raise TypeError(f"camera_solve takes float32 points, got {points.dtype}")
+    if not points.is_contiguous():
+        raise ValueError("camera_solve needs a contiguous point map")
+    if points.shape[1] * points.shape[2] >= 2 ** 31:
+        raise ValueError(f"camera_solve takes fewer than 2**31 pixels a map, got {tuple(points.shape[1:3])}")
+    if mask is not None and (mask.shape != points.shape[:3] or mask.dtype != torch.bool or not mask.is_contiguous()
+                             or mask.device != points.device):
+        raise ValueError(f"camera_solve mask must be a contiguous bool {tuple(points.shape[:3])} tensor on "
+                         f"{points.device}, got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    if focal is not None and (focal.shape != points.shape[:1] or focal.dtype != torch.float32
+                              or focal.device != points.device):
+        raise ValueError(f"camera_solve focal must be an fp32 {tuple(points.shape[:1])} tensor on {points.device}, "
+                         f"got {focal.dtype} {tuple(focal.shape)} on {focal.device}")
+
+
+def _launch(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[torch.Tensor], out_h: int,
+            out_w: int, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global LAUNCHES
+    _build.require_cuda_tensor(points, "camera_solve")
+    _check(points, mask, focal)
+    n_items, height, width, _ = points.shape
+    est_focal = torch.empty(n_items, dtype=torch.float32, device=points.device)
+    shift = torch.empty_like(est_focal)
+    if n_items == 0:
+        return est_focal, shift
+    uv, pixel = _device_table(height, width, out_h, out_w, points.device)
+    lib, fn = _kernel()
+    rc = _build.call_on(points.device, fn, points.data_ptr(), None if mask is None else mask.data_ptr(),
+                        None if focal is None else focal.data_ptr(), 0 if focal is None else focal.stride(0),
+                        uv.data_ptr(), pixel.data_ptr(), est_focal.data_ptr(), shift.data_ptr(), n_items,
+                        height * width, out_h * out_w, iters)
+    _build.check(lib, rc, "camera_solve")
+    LAUNCHES += 1
+    return est_focal, shift
+
+
+def _plain_op(points, mask, focal, out_h, out_w, iters):
+    _check(points, mask, focal)
+    return _recover_plain(points, mask, focal, (out_h, out_w), iters)
+
+
+def _fake(points, mask, focal, out_h, out_w, iters):
+    _check(points, mask, focal)
+    return (points.new_empty(points.shape[:1], dtype=torch.float32),
+            points.new_empty(points.shape[:1], dtype=torch.float32))
+
+
+_build.define_op("camera_solve(Tensor points, Tensor? mask, Tensor? focal, int out_h, int out_w, int iters) "
+                 "-> (Tensor, Tensor)", _launch, _plain_op, _fake)
+
+
+def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        focal: Optional[torch.Tensor] = None,
+                        downsample_size: Tuple[int, int] = (64, 64),
+                        iters: int = 30) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(focal, shift), each of shape (...), from an affine point map
+    ``points`` (..., H, W, 3), an optional ``mask`` (..., H, W; nonzero keeps
+    a pixel) and an optional known ``focal`` (...). Focal is relative to half
+    the image diagonal. Items with fewer than 2 valid pixels return (1, 0).
+
+    CUDA tensors run kernel K5 (one launch, no host synchronisation once the
+    shape's sample table is on the card); CPU tensors run the plain version.
+    A traced program (``torch.export``) records the op ``moge::camera_solve``."""
+    *batch_shape, height, width, _ = points.shape
+    pts = points.reshape(-1, height, width, 3)
+    m = None if mask is None else mask.reshape(-1, height, width)
+    f = focal
+    if f is not None:
+        f = torch.as_tensor(f, dtype=torch.float32, device=points.device).reshape(-1).expand(pts.shape[0])
+    compiling = torch.compiler.is_compiling()
+    if points.device.type == "cpu" and not compiling:
+        est_focal, shift = _recover_plain(pts, m, f, tuple(downsample_size), iters)
+    else:
+        pts = pts.float().contiguous()
+        if m is not None:
+            m = (m if m.dtype == torch.bool else m > 0).contiguous()
+        out_h, out_w = downsample_size
+        solve = torch.ops.moge.camera_solve if compiling else _launch
+        est_focal, shift = solve(pts, m, f, out_h, out_w, iters)
     return est_focal.reshape(batch_shape), shift.reshape(batch_shape)

@@ -155,7 +155,8 @@ def _weight_derived_nodes(program, weights):
 def test_graph_holds_the_ops_and_the_weights_as_constants(models, version, post, fp16):
     """One op node per kernel call of the forward (chip_smoke's launch
     counts of the config; the batched heads' grouped convs are
-    ``moge::conv3x3`` with 5-dim kernels), and the derived weights (bf16
+    ``moge::conv3x3`` with 5-dim kernels; with ``infer``'s post-processing
+    the camera solve is one ``moge::camera_solve``), and the derived weights (bf16
     casts, folds, parity expansions, the heads' stacks, the pos-embed grid)
     as constants: no node rebuilds one from the parameters. The program's
     outputs equal the live model's."""
@@ -167,7 +168,8 @@ def test_graph_holds_the_ops_and_the_weights_as_constants(models, version, post,
               else expected_launches(TINY_CONFIG, batched_heads=tm.module.batched_heads))
     assert ops == {"moge.layer_norm.default": expect["layer_norm"],
                    "moge.flash_attention.default": expect["flash_attention"],
-                   "moge.conv3x3.default": expect["conv3x3"] + expect["conv3x3_grouped"]}
+                   "moge.conv3x3.default": expect["conv3x3"] + expect["conv3x3_grouped"],
+                   **({"moge.camera_solve.default": expect["camera_solve"]} if post else {})}
     image = torch.from_numpy(_image(1, 3))
     got = load_program(blob)(image)
     if post:

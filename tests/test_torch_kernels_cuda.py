@@ -4,8 +4,9 @@ small ragged shapes and at the main path's K3 shapes (one case per copy
 variant, counted), and the tiny MoGe-2 decode (sequential and batched
 heads), the tiny MoGe-1 forward and the MoGe-2 gradient on the card against
 the CPU, the sorted truncated-align forms and the bitonic network on the
-card against the CPU and the stable sort, and the ported TPU probes T1-T6
-against their plain versions. Needs
+card against the CPU and the stable sort, the ported TPU probes T1-T6
+against their plain versions, and the camera solve K5 against its plain
+version on the card (one launch, no host synchronisation). Needs
 a CUDA GPU and
 nvcc (the kernels have no CPU mode); skipped elsewhere. On a GPU host:
 
@@ -19,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from moge_tpu_torch.ops import alignment, attention, bitonic, conv, norm
-from torch_tiny_config import TINY_CONFIG
+from moge_tpu_torch.ops import alignment, attention, bitonic, conv, norm, solvers
+from torch_tiny_config import TINY_CONFIG, camera_point_maps
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +31,12 @@ K3_BF16_REL = 1e-2
 K2B_FP32_REL = 1e-4  # fp32 backward vs autograd of the plain version: summation order
 K2B_BF16_REL = 3e-2  # P and dS rounded to bf16 before their products, as on the TPU
 K4_REL = 2e-5        # fp32 sums of up to ~1.7k terms in another order (and fma)
+# K5 against the plain solve on the card: |focal ratio - 1| and |shift
+# difference| / mean |z|. Both are fp32 30-step LM solves whose sums run in
+# another order: on an H100 the 18 cases below read up to 9.4e-6 (focal) and
+# 1.05e-5 (shift), both at batch 8 with a mask; in a CPU emulation each
+# order lies up to 1.3e-5 from a float64 solve of the same samples
+SOLVE_REL = 2e-5
 
 
 @pytest.fixture
@@ -700,3 +707,88 @@ def test_raw_forward_export_on_card_matches_cpu_export(dev):
         for key in want:
             a, b = got[key].float().cpu(), want[key]
             assert ((a - b).norm() / b.norm()).item() <= rtol, (key, fp16)
+
+
+def _camera_case(dev, b, h, w, seed, use_mask):
+    """``camera_point_maps`` on the card; with a mask and b > 1 one item
+    keeps a single pixel (degenerate: (1, 0)) beside sound ones."""
+    points, mask, focal = camera_point_maps(b, h, w, seed)
+    if use_mask and b > 1:
+        mask[b // 2] = False
+        mask[b // 2, 0, 0] = True
+    return (torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev) if use_mask else None,
+            torch.from_numpy(focal).to(dev))
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 90, 120), (8, 90, 120), (1, 480, 640), (8, 518, 518)])
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("known_focal", [False, True])
+def test_camera_solve(dev, b, h, w, use_mask, known_focal):
+    """K5 (``recover_focal_shift`` on the card: one launch) against the plain
+    version on the card; a known focal is the camera's own."""
+    points, mask, focal = _camera_case(dev, b, h, w, b + h + 2 * use_mask, use_mask)
+    focal = focal if known_focal else None
+    before = solvers.LAUNCHES
+    got = solvers.recover_focal_shift(points, mask, focal)
+    assert solvers.LAUNCHES == before + 1
+    want = solvers._recover_plain(points, mask, focal, (64, 64), 30)
+    torch.cuda.synchronize()
+    assert [(t.shape, t.dtype) for t in got] == [((b,), torch.float32)] * 2
+    z_mean = points[..., 2].abs().mean((1, 2))
+    assert (got[0] / want[0] - 1).abs().max().item() <= SOLVE_REL
+    assert ((got[1] - want[1]).abs() / z_mean).max().item() <= SOLVE_REL
+    if use_mask and b > 1:
+        assert (got[0][b // 2].item(), got[1][b // 2].item()) == (1.0, 0.0)
+    if known_focal:
+        keep = torch.ones(b, dtype=torch.bool, device=dev)
+        if use_mask and b > 1:
+            keep[b // 2] = False
+        assert torch.equal(got[0][keep], focal[keep])
+
+
+@pytest.mark.parametrize("known_focal", [False, True])
+def test_camera_solve_past_the_registers(dev, known_focal):
+    """A 96x96 downsample (9216 samples, past the 512 x 8 a block holds in
+    registers): the samples gathered again in every pass."""
+    points, mask, focal = _camera_case(dev, 8, 480, 640, 9, True)
+    focal = focal if known_focal else None
+    before = solvers.LAUNCHES
+    got = solvers.recover_focal_shift(points, mask, focal, downsample_size=(96, 96))
+    assert solvers.LAUNCHES == before + 1
+    want = solvers._recover_plain(points, mask, focal, (96, 96), 30)
+    z_mean = points[..., 2].abs().mean((1, 2))
+    assert (got[0] / want[0] - 1).abs().max().item() <= SOLVE_REL
+    assert ((got[1] - want[1]).abs() / z_mean).max().item() <= SOLVE_REL
+
+
+def test_camera_solve_one_kernel_no_host_sync(dev):
+    """A call is one kernel and no copy on the device, and makes no host
+    synchronisation, also the first call at a shape (its sample table comes
+    from pinned memory without blocking)."""
+    points, mask, focal = _camera_case(dev, 8, 518, 518, 4, True)
+    solvers.recover_focal_shift(points, mask)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solvers.recover_focal_shift(points, mask)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 1 and "camera_solve" in device_ops[0], device_ops
+    fresh = points[:, :500, :470].contiguous()
+    fresh_mask = mask[:, :500, :470].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in (None, focal):
+            solvers.recover_focal_shift(points, mask, f)
+        solvers.recover_focal_shift(fresh, fresh_mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_camera_solve_rejects_what_the_kernel_does_not_take(dev):
+    points, mask, focal = _camera_case(dev, 2, 90, 120, 5, True)
+    for args in ((points.transpose(1, 2).contiguous().transpose(1, 2), mask, None), (points, mask[:, 1:], None),
+                 (points, mask.cpu(), None), (points, mask, focal.cpu()), (points.half(), mask, None)):
+        with pytest.raises((ValueError, TypeError)):
+            torch.ops.moge.camera_solve(*args, 64, 64, 30)

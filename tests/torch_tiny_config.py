@@ -4,8 +4,9 @@ neck, three heads, scale MLP) on the ``dinov2_vitt14`` arch, as in
 ``__graft_entry__.dryrun_multichip``; the weight bridge from the JAX
 package's parameter trees to the port's state dicts; a smooth distance
 field seen by the panorama's views; a synthetic eval benchmark and
-synthetic training datasets written with the port's codecs; and the rank
-of the sequence-parallel tests (``sp_rank``)."""
+synthetic training datasets written with the port's codecs; the rank
+of the sequence-parallel tests (``sp_rank``); and point maps of pinhole
+cameras for the camera solve (``camera_point_maps``)."""
 
 _HEAD = {
     "dim_in": [64, 32, 16, 16, 16], "dim_res_blocks": [64, 32, 16, 16, 16], "num_res_blocks": [0, 1, 1, 1, 0],
@@ -28,6 +29,29 @@ TINY_CONFIG = {
     "remap_output": "exp",
     "num_tokens_range": [1200, 3600],
 }
+
+
+def camera_point_maps(batch: int, height: int, width: int, seed: int):
+    """Point maps of pinhole cameras for the camera solve, made with numpy:
+    (points (B, H, W, 3) fp32, mask (B, H, W) bool, focal (B,) fp32). Each
+    camera has a focal in [0.8, 1.6] (half-diagonal units), depths in [2,
+    6], a z-shift in [0.5, 1.5] for the solve to undo, noise of 0.01 and
+    about 70% of its pixels kept by the mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    aspect = width / height
+    span_x, span_y = aspect / (1 + aspect ** 2) ** 0.5, 1 / (1 + aspect ** 2) ** 0.5
+    u = np.linspace(-span_x * (width - 1) / width, span_x * (width - 1) / width, width)
+    v = np.linspace(-span_y * (height - 1) / height, span_y * (height - 1) / height, height)
+    uv = np.stack(np.meshgrid(u, v, indexing="xy"), axis=-1)
+    depth = rng.uniform(2, 6, (batch, height, width))
+    focal = rng.uniform(0.8, 1.6, batch)
+    xy = uv[None] * depth[..., None] / focal[:, None, None, None]
+    points = np.concatenate([xy, depth[..., None] - rng.uniform(0.5, 1.5, (batch, 1, 1, 1))], axis=-1)
+    points += rng.standard_normal(points.shape) * 0.01
+    mask = rng.uniform(0, 1, (batch, height, width)) > 0.3
+    return points.astype(np.float32), mask, focal.astype(np.float32)
 
 
 def make_points_perspective(module, z=0.3, tilt=0.5):
