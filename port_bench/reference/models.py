@@ -27,7 +27,10 @@ def _conv(p: str, o: int, i: int, k: int) -> List[Tuple[str, tuple]]:
 
 
 def _vit_specs(p: str, arch: str) -> List[Tuple[str, tuple]]:
-    dim, depth, _ = vit.ARCHS[arch]
+    dim, depth, _, ffn = vit.ARCHS[arch]
+    hidden = vit.ffn_hidden(arch)
+    first, second = ("mlp.w12.", "mlp.w3.") if ffn == "swiglu" else ("mlp.fc1.", "mlp.fc2.")
+    width = 2 * hidden if ffn == "swiglu" else hidden  # the fused SwiGLU's first linear gives x1 and x2
     out = [(p + "cls_token", (1, 1, dim)), (p + "pos_embed", (1, vit.POS_GRID ** 2 + 1, dim)),
            (p + "mask_token", (1, dim)), *_conv(p + "patch_embed.proj.", dim, 3, vit.PATCH)]
     for i in range(depth):
@@ -36,8 +39,8 @@ def _vit_specs(p: str, arch: str) -> List[Tuple[str, tuple]]:
                 (b + "attn.qkv.weight", (3 * dim, dim)), (b + "attn.qkv.bias", (3 * dim,)),
                 (b + "attn.proj.weight", (dim, dim)), (b + "attn.proj.bias", (dim,)), (b + "ls1.gamma", (dim,)),
                 (b + "norm2.weight", (dim,)), (b + "norm2.bias", (dim,)),
-                (b + "mlp.fc1.weight", (4 * dim, dim)), (b + "mlp.fc1.bias", (4 * dim,)),
-                (b + "mlp.fc2.weight", (dim, 4 * dim)), (b + "mlp.fc2.bias", (dim,)), (b + "ls2.gamma", (dim,))]
+                (b + first + "weight", (width, dim)), (b + first + "bias", (width,)),
+                (b + second + "weight", (dim, hidden)), (b + second + "bias", (dim,)), (b + "ls2.gamma", (dim,))]
     return out + [(p + "norm.weight", (dim,)), (p + "norm.bias", (dim,))]
 
 

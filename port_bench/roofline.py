@@ -14,19 +14,20 @@ the model's shapes, not the program's code: a 3x3 conv after a bilinear 2x
 upsample is counted at the output resolution, and the last conv of a
 MoGe-2 head is counted folded with the 1x1 projection after it (the least
 work that gives the same map). ``model_flops`` counts the model's
-multiply-adds as published (unfolded), for ``mfu``.
+multiply-adds as published (unfolded), for ``mfu``. The architectures'
+widths, depths, heads and feed-forwards are the reference's table
+(``reference/vit.py``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
+from .reference.vit import ARCHS, ffn_hidden
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 132 * 128 * 2 * 1.98e9}
 ELEM_BYTES = {"bfloat16": 2, "float32": 4}
-
-VIT = {"dinov2_vitl14": (1024, 24, 16), "dinov2_vitb14": (768, 12, 12), "dinov2_vits14": (384, 12, 6),
-       "dinov2_vitt14": (192, 4, 3)}  # embed_dim, depth, heads
 
 
 def least_s(flops: float, nbytes: float, dtype: str) -> float:
@@ -120,10 +121,14 @@ def grid(version: str, cfg: Dict[str, Any], height: int, width: int, num_tokens:
 
 
 def vit_flops(arch: str, batch: int, tokens: int) -> float:
-    """Multiply-adds x 2 of a DINOv2 forward over ``tokens`` patches (+ cls)."""
-    dim, depth, _ = VIT[arch]
+    """Multiply-adds x 2 of a DINOv2 forward over ``tokens`` patches (+ cls):
+    a block's qkv and projection, its feed-forward (the MLP's two linears,
+    8 D^2 a token; the fused SwiGLU's D -> 2 hidden and hidden -> D, 3 D
+    hidden a token) and its attention's QK^T and PV."""
+    dim, depth, _, ffn = ARCHS[arch]
     n = tokens + 1
-    block = 2.0 * n * (3 * dim * dim + dim * dim + 8 * dim * dim) + 4.0 * n * n * dim
+    ffn_macs = 3 * dim * ffn_hidden(arch) if ffn == "swiglu" else 8 * dim * dim
+    block = 2.0 * n * (3 * dim * dim + dim * dim + ffn_macs) + 4.0 * n * n * dim
     return batch * (2.0 * tokens * 3 * 14 * 14 * dim + depth * block)
 
 
@@ -155,7 +160,7 @@ def model_flops(version: str, cfg: Dict[str, Any], batch: int, height: int, widt
     gh, gw, rh, rw = grid(version, cfg, height, width, num_tokens)
     if version == "v2":
         enc = cfg["encoder"]
-        dim = VIT[enc["backbone"]][0]
+        dim = ARCHS[enc["backbone"]][0]
         total = vit_flops(enc["backbone"], batch, gh * gw)
         total += len(enc["intermediate_layers"]) * _mm(batch, gh, gw, dim, enc["dim_out"])
         total += _stack_flops(cfg["neck"], batch, gh, gw)
@@ -164,7 +169,7 @@ def model_flops(version: str, cfg: Dict[str, Any], batch: int, height: int, widt
                 total += _stack_flops(cfg[name], batch, gh, gw)
         dims = cfg["scale_head"]["dims"]
         return total + sum(2.0 * batch * a * b for a, b in zip(dims[:-1], dims[1:]))
-    dim = VIT[cfg["encoder"]][0]
+    dim = ARCHS[cfg["encoder"]][0]
     layers = cfg["intermediate_layers"]
     total = vit_flops(cfg["encoder"], batch, gh * gw)
     total += (layers if isinstance(layers, int) else len(layers)) * _mm(batch, gh, gw, dim, cfg["dim_proj"])
@@ -182,7 +187,7 @@ def k2_least_s(version: str, cfg: Dict[str, Any], batch: int, height: int, width
     """Least time of the attention forwards of one model forward."""
     gh, gw, _, _ = grid(version, cfg, height, width, num_tokens)
     arch = cfg["encoder"]["backbone"] if version == "v2" else cfg["encoder"]
-    dim, depth, heads = VIT[arch]
+    dim, depth, heads, _ = ARCHS[arch]
     return depth * least_s(*attention_fwd(batch, heads, gh * gw + 1, dim // heads, dtype), dtype)
 
 

@@ -1,6 +1,7 @@
 """The plain reference against the program on the CPU, fp32, at a tiny
-size: MoGe-2 and MoGe-1 ``infer``; and the reference's checkpoint layout
-against the program's state dicts at the published sizes."""
+size: MoGe-2 and MoGe-1 ``infer``, and MoGe-2 on a tiny arch with the
+giant's fused SwiGLU; and the reference's checkpoint layout against the
+program's state dicts at the published sizes, the giant's included."""
 
 import copy
 
@@ -14,18 +15,33 @@ from port_bench.reference import models
 from port_bench.tests import tiny
 
 
-@pytest.mark.parametrize("name", ["moge-2-vitl-normal", "moge-vitl"])
-def test_layout_equals_the_programs_state_dict(name):
+def _published(name):
+    """(version, model config) of a preset or of the giant's derived file."""
+    if name == "moge-2-vitg14-normal":
+        return "v2", tiny.giant_file()["model_config"]
     preset = presets.get_preset(name)
+    return preset["version"], preset["config"]
+
+
+@pytest.mark.parametrize("name", ["moge-2-vitl-normal", "moge-vitl", "moge-2-vitg14-normal"])
+def test_layout_equals_the_programs_state_dict(name):
+    version, cfg = _published(name)
     with torch.device("meta"):
-        module = (v2.MoGeV2(**preset["config"]) if preset["version"] == "v2"
-                  else v1.MoGeV1(**v1.normalize_config(preset["config"])))
-    specs = models.param_specs(preset["version"], preset["config"])
+        module = v2.MoGeV2(**cfg) if version == "v2" else v1.MoGeV1(**v1.normalize_config(cfg))
+    specs = models.param_specs(version, cfg)
     assert [(k, tuple(v.shape)) for k, v in module.state_dict().items()] == [(k, tuple(s)) for k, s in specs]
 
 
-@pytest.mark.parametrize("cell", ["v2l-offline-b8-3600", "v1l-folder-fp32-480x640"])
-def test_reference_equals_the_program_in_fp32(cell):
+# the tiny MoGe-2 and MoGe-1, and the tiny MoGe-2 with the giant's fused SwiGLU
+CASES = [pytest.param("v2l-offline-b8-3600", False, id="v2l-offline-b8-3600"),
+         pytest.param("v1l-folder-fp32-480x640", False, id="v1l-folder-fp32-480x640"),
+         pytest.param("v2l-offline-b8-3600", True, id="v2l-offline-b8-3600-swiglu")]
+
+
+@pytest.mark.parametrize("cell,swiglu", CASES)
+def test_reference_equals_the_program_in_fp32(cell, swiglu, monkeypatch):
+    if swiglu:
+        tiny.swiglu(monkeypatch)
     _, workload, config = tiny.cell(cell)
     sd = weights.draw(config["version"], config["model_config"], config["weights"], 2 ** 31 + 3, "cpu")
     model = program.build(config, sd, "cpu")
@@ -62,9 +78,11 @@ def test_perspective_routing_gives_the_solve_one_answer():
     assert out["intrinsics"][0, 0, 0].item() == pytest.approx(fx, rel=1e-4)
 
 
-@pytest.mark.parametrize("cell", ["v2l-offline-b8-3600", "v1l-folder-fp32-480x640"])
-def test_outlier_channels_leave_every_float_answer_unchanged(cell):
+@pytest.mark.parametrize("cell,swiglu", CASES)
+def test_outlier_channels_leave_every_float_answer_unchanged(cell, swiglu, monkeypatch):
     """The outlier channels move no bit of the bf16 or fp32 program's answer."""
+    if swiglu:
+        tiny.swiglu(monkeypatch)
     _, _, config = tiny.cell(cell)
     images = weights.images(4, 1, 60, 80, "cpu")
     outs = []

@@ -5,7 +5,8 @@ import pytest
 import torch
 
 import moge_tpu_torch.models.modules as modules
-from port_bench import program, roofline, weights
+from port_bench import harness, program, roofline, weights
+from port_bench.reference import models, vit
 from port_bench.tests import tiny
 
 
@@ -28,6 +29,36 @@ def test_conv3x3_counts():
 def test_vit_l_forward_counts():
     # 37 x 37 tokens + cls, 24 blocks of D = 1024: 24 N D^2 + 4 N^2 D a block, and the patch embed
     assert roofline.vit_flops("dinov2_vitl14", 1, 1369) == 1_013_607_653_376
+
+
+def test_giant_forward_counts():
+    # 37 x 37 tokens + cls, 40 blocks of D = 1536 with the fused SwiGLU of hidden 4096:
+    # 2 N (4 D^2 + 3 D 4096) + 4 N^2 D a block, and the patch embed
+    assert roofline.vit_flops("dinov2_vitg14", 1, 1369) == 3_566_685_917_184
+
+
+# (model_flops, k2_least_s, k3_least_s) at each cell's shape, held fixed: a change to the counts would move
+# what the cells' mfu and roofline metrics read
+CELL_COUNTS = {
+    "v2l-serve-518-poisson": (11131161755648.0, 0.0014924714062689586, 0.002543753697618279),
+    "v2l-offline-b8-3600": (35427068166144.0, 0.010242637476109201, 0.0066663982570496355),
+    "v1l-folder-fp32-480x640": (2442620719104.0, 0.008833504499540864, 0.005223446280991736),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_COUNTS))
+def test_the_cells_counts_are_unchanged(cell):
+    _, w, config = harness.load_cell(harness.ROOT, cell)
+    cfg = config["model_config"]
+    tokens = w.get("num_tokens") or models.num_tokens_of(cfg, w["resolution_level"])
+    args = (config["version"], cfg, w.get("batch", w.get("max_batch")), w["height"], w["width"], tokens)
+    got = (roofline.model_flops(*args), roofline.k2_least_s(*args, config["dtype"]),
+           roofline.k3_least_s(*args, config["dtype"]))
+    assert got == CELL_COUNTS[cell]
+
+
+def test_the_roofline_reads_the_references_architectures():
+    assert not hasattr(roofline, "VIT") and roofline.ARCHS is vit.ARCHS
 
 
 def test_least_time_takes_the_larger_bound():

@@ -28,6 +28,40 @@ V2 = {
 }
 
 
+def giant_file() -> dict:
+    """MoGe-2 with the normal head on DINOv2 ViT-g/14 (40 blocks of 1536, 24
+    heads, the fused SwiGLU) as a configuration file derived from the preset
+    ``moge-2-vitl-normal``, with its weights, at the published widths."""
+    base = harness.load_json(harness.HERE / "configs" / "moge-2-vitl-normal.json")
+    model = copy.deepcopy(base["model_config"])
+    model["encoder"].update(backbone="dinov2_vitg14", intermediate_layers=[9, 19, 29, 39])
+    model["scale_head"]["dims"][0] = 1536
+    return {"name": "moge-2-vitg14-normal", "version": "v2", "dtype": "bfloat16", "derived_from": base["name"],
+            "source": "https://github.com/facebookresearch/dinov2", "reduced": [],
+            "assumed": [
+                {"key": "encoder.backbone",
+                 "from": "facebookresearch/dinov2 hubconf.py: dinov2_vitg14, vit_giant2 with ffn_layer swiglufused"},
+                {"key": "encoder.intermediate_layers",
+                 "from": "facebookresearch/dinov2 hub/depthers.py: the layers its heads take of vit_giant2"},
+                {"key": "scale_head.dims[0]",
+                 "from": "the width of the giant's cls token, which the scale head reads"}],
+            "note": "MoGe-2 ViT-L normal's neck and heads on the DINOv2 giant, whole: 40 blocks, bf16.",
+            "model_config": model, "weights": copy.deepcopy(base["weights"])}
+
+
+def swiglu(monkeypatch) -> None:
+    """The tiny test arch with DINOv2's fused SwiGLU feed-forward in place of
+    its MLP, in the program's table and in the reference's alike."""
+    import dataclasses
+
+    from moge_tpu_torch.models import dinov2
+    from port_bench.reference import vit
+
+    arch = "dinov2_vitt14"
+    monkeypatch.setitem(dinov2.VIT_ARCHS, arch, dataclasses.replace(dinov2.VIT_ARCHS[arch], ffn="swiglu"))
+    monkeypatch.setitem(vit.ARCHS, arch, vit.ARCHS[arch][:3] + ("swiglu",))
+
+
 def cell(name: str):
     """(BENCHMARK.json, the cell's file, its configuration) with the model
     and the traffic cut to a CPU test's size; limits as committed."""
