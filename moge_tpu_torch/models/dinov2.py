@@ -42,6 +42,7 @@ from ..ops.norm import layer_norm_fp32
 from ..ops.quant import QuantLinear
 from ..ops.resize import resize_2d
 from ..parallel.sp import gather_tokens, shard_tokens
+from ..utils.tools import span
 from ._weights import cast, derived, remat_call
 
 __all__ = ["ViTConfig", "VIT_ARCHS", "DinoVisionTransformer"]
@@ -151,7 +152,9 @@ class Mlp(nn.Module):
 
 class SwiGLU(nn.Module):
     """SwiGLUFFNFused (the giant arch): one fused linear to 2 x hidden, split
-    into x1 and x2, then ``w3(silu(x1) * x2)``."""
+    into x1 and x2, then ``w3(silu(x1) * x2)``. The whole feed-forward is the
+    span ``moge.encoder.ffn`` (CUDA events, no range: inside ``moge.encoder``
+    an operator range would take the kernels the ctypes wrappers launch)."""
 
     def __init__(self, dim: int, hidden: int, use_int8: bool = False):
         super().__init__()
@@ -159,8 +162,9 @@ class SwiGLU(nn.Module):
         self.w3 = _linear(use_int8)(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        with span("moge.encoder.ffn", device=True, host_range=False):
+            x1, x2 = self.w12(x).chunk(2, dim=-1)
+            return self.w3(F.silu(x1) * x2)
 
 
 class Block(nn.Module):

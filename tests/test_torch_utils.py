@@ -3,7 +3,8 @@ server's writers and the EXR reader, geometry, mesh export and
 colorization) against the JAX package's moge_tpu.utils on seeded inputs:
 equal arrays and equal bytes; the profiler trace; the program's spans (off
 without a profiler, counted and nested with one, on threads that started
-before it, and ``infer``'s stages for MoGe-1 and MoGe-2)."""
+before it, ``infer``'s stages for MoGe-1 and MoGe-2, and the giant's
+SwiGLU feed-forward)."""
 
 import io
 
@@ -296,3 +297,38 @@ def test_infer_stages_are_spans(version):
     assert all(summary[name]["host_s"] <= summary["moge.infer"]["host_s"] for name in INFER_STAGES)
     for key, value in want.items():  # the spans change no answer
         assert torch.equal(got[key], value), key
+
+
+@pytest.mark.parametrize("ffn", ["swiglu", "mlp"])
+def test_the_swiglu_feed_forward_is_a_span_in_the_encoder(ffn, monkeypatch):
+    """Each block's fused SwiGLU is one ``moge.encoder.ffn`` span inside
+    ``moge.encoder``, with no range (the benchmark's ``pb.encoder`` keeps
+    its kernels), and none without a profiler; the MLP opens none."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from moge_tpu_torch.models import dinov2, v2
+    from moge_tpu_torch.utils.tools import span_summary
+    from torch_tiny_config import TINY_CONFIG
+
+    arch = TINY_CONFIG["encoder"]["backbone"]
+    monkeypatch.setitem(dinov2.VIT_ARCHS, arch, dataclasses.replace(dinov2.VIT_ARCHS[arch], ffn=ffn))
+    depth = dinov2.VIT_ARCHS[arch].depth
+    model = v2.MoGeModel(TINY_CONFIG, "cpu", torch.float32).init_random(seed=0)
+    image = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (2, 42, 56, 3)).astype(np.float32))
+    span_summary()
+    model.infer(image, num_tokens=12, use_fp16=False)
+    assert span_summary() == {}  # no profiler: nothing stored
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            model.infer(image, num_tokens=12, use_fp16=False)
+    summary = span_summary()
+    assert "moge.encoder.ffn" not in {e.name for e in prof.events()}
+    if ffn == "mlp":
+        assert "moge.encoder.ffn" not in summary
+        return
+    ffn_span = summary["moge.encoder.ffn"]
+    assert ffn_span["count"] == 3 * depth and ffn_span["parent"] == "moge.encoder"
+    assert 0 < ffn_span["host_s"] <= summary["moge.encoder"]["host_s"]
