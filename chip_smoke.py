@@ -17,7 +17,10 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
    (and its logsumexp; B = 1 and 8 at the ViT token counts, B = 12 at the
    panorama's and B = 1 at eval's, times by CUDA events and by device time,
    then kv_valid at the bf16 kernel's key-tile edges, then the giant's 24
-   heads at B = 1), K3 at every conv
+   heads at B = 1; then the fp32 kernel at MoGe-1's folder image, eval's and
+   the panorama's shapes, timed beside SDPA's memory-efficient fp32 forward
+   and the FP32 bound, and at its 32-key tile edges and a sequence-parallel
+   chunk), K3 at every conv
    shape of the ViT-L forwards of ``infer`` (batch 1, 1369 tokens), the
    panorama (batch 12, 3600 tokens), eval (480x640, 3600 tokens) and the
    training command's two extreme grids (batch 2, 1200 tokens, aspect 2:1
@@ -227,6 +230,11 @@ DEVICE = "cuda:0"  # the one card every phase runs on
 MODEL_L2_RTOL = 3e-2
 K2_MAX_ABS = 2e-2
 K2_LSE_ABS = 1e-3  # fp32 logsumexp of the same bf16 products, summed in another order
+# the fp32 K2 against its fp32 plain version: summation order only (out:
+# |got - want| <= tol (1 + |want|), lse: <= lse_abs + tol |want|), as
+# tests/test_torch_kernels_cuda.py holds it
+K2_F32_TOL = 1e-5
+K2_F32_LSE_ABS = 1e-4
 K3_REL = 1e-2
 # K2b vs autograd through the plain version in fp32, relative to the largest
 # gradient: bf16 rounds P and dS before their products (as on the TPU); fp32
@@ -422,18 +430,20 @@ def _heads_first(t):
 
 
 def library_sdpa(q, k, v, kv_valid=None, dout=None):
-    """SDPA on the flash backend over the first ``kv_valid`` keys ((B, N, H,
-    D) inputs moved to (B, H, N, D) outside the timed call): the forward, or
-    with ``dout`` the backward (dq, dk and dv in one call)."""
+    """SDPA over the first ``kv_valid`` keys ((B, N, H, D) inputs moved to
+    (B, H, N, D) outside the timed call), on the flash backend (bf16) or the
+    memory-efficient one (fp32, which flash does not take): the forward, or
+    with ``dout`` the backward (dq, dk and dv in one call, bf16)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     kv = k.shape[1] if kv_valid is None else kv_valid
     qt, kt, vt = _heads_first(q), _heads_first(k[:, :kv]), _heads_first(v[:, :kv])
+    backend = SDPBackend.EFFICIENT_ATTENTION if q.dtype == torch.float32 else SDPBackend.FLASH_ATTENTION
     if dout is None:
         def fwd():
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            with sdpa_kernel([backend]):
                 return F.scaled_dot_product_attention(qt, kt, vt)
         return fwd
     leaves = [t.requires_grad_() for t in (qt, kt, vt)]
@@ -627,6 +637,8 @@ def phase_kernels():
             raise AssertionError(f"K2 logsumexp disagrees at {label}: {lse_err} > {K2_LSE_ABS}")
         k2.append(case)
         del qkv, q, k, v, got, got_lse, want, want_lse
+    torch.cuda.empty_cache()
+    k2 += fp32_attention_cases(gen, paths)
     results["flash_attention"] = k2
     torch.cuda.empty_cache()
 
@@ -634,6 +646,62 @@ def phase_kernels():
     results["conv3x3_grouped"] = grouped_cases(gen)
     torch.cuda.synchronize()
     return results
+
+
+def fp32_attention_cases(gen, paths: dict) -> list:
+    """The fp32 K2 (the register-blocked FFMA kernel of MoGe-1's and every
+    fp32 ``infer``) against its plain version in fp32, q/k/v strided views of
+    one fp32 (B, N, 3, H, 64) projection: timed at MoGe-1's folder image (B =
+    1, 2501 tokens), eval's and the panorama's shapes, by CUDA events and
+    device time beside SDPA's memory-efficient fp32 forward and the FP32
+    bound; then, for the errors alone, kv_valid on and around the kernel's
+    32-key tiles and a sequence-parallel chunk (1801 queries of 3602 keys,
+    3601 live). Each launch counted under ``fp32``, with the build
+    ``f32_plan`` took."""
+    import torch
+
+    from moge_tpu_torch.ops import _build, attention
+
+    f32 = torch.float32
+    dev = torch.device(DEVICE)
+    (pano_b, pano_n), (eval_b, eval_n) = paths["panorama"], paths["eval"]
+    cases = []
+    for b, nq, n, kv_valid, timed in [(1, 2501, 2501, None, True), (eval_b, eval_n, eval_n, None, True),
+                                      (pano_b, pano_n, pano_n, None, True)] + \
+                                     [(1, 1370, 1370, kv, False) for kv in (1, 31, 32, 33, 127, 128, 129)] + \
+                                     [(1, 1801, 3602, 3601, False)]:
+        qkv = torch.randn(b, n, 3, 16, 64, generator=gen, device=dev, dtype=f32)
+        q, k, v = qkv[:, :nq, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
+        before = dict(attention.VARIANT_LAUNCHES)
+        got, got_lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+        if {key: c - before[key] for key, c in attention.VARIANT_LAUNCHES.items()} != {"wgmma": 0, "fp32": 1}:
+            raise AssertionError(f"fp32 K2 at B={b} Nq={nq} kv_valid={kv_valid} did not launch the fp32 kernel")
+        want, want_lse = attention.attention_plain(q, k, v, kv_valid, return_lse=True)
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - K2_F32_TOL * (1 + want.abs())).max().item()
+        lse_excess = ((got_lse - want_lse).abs() - K2_F32_LSE_ABS - K2_F32_TOL * want_lse.abs()).max().item()
+        kv = kv_valid or n
+        plan = attention.f32_plan(b, 16, nq, _build.sm_count(dev))
+        label = f"B={b} H=16 Nq={nq} kv_valid={kv}"
+        line = (f"[K2 fp32] {label}: max_abs_err {err:.3e}, lse max_abs_err "
+                f"{(got_lse - want_lse).abs().max().item():.3e} (tol {K2_F32_TOL} x (1 + |want|) / {K2_F32_LSE_ABS} + "
+                f"{K2_F32_TOL} x |want|), "
+                f"the {plan.per_sm}-a-SM build")
+        case = (err, None, None, None, None)
+        if timed:
+            ms, plain_ms, lib_ms, dev_ms = attention_times(q, k, v, kv_valid)
+            bnd = bound(f32, flops=4 * b * 16 * nq * kv * 64, mufu=b * 16 * nq * kv,
+                        bytes_moved=4 * b * 16 * 64 * 2 * (nq + kv) + b * 16 * nq * 4)
+            line += (f", {conv_times_text(ms, plain_ms, lib_ms, dev_ms, 'SDPA efficient fp32')}; "
+                     f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / dev_ms['device_ms'] * 100:.1f}% of it by device time")
+            case = (err, ms, plain_ms, lib_ms, bnd, dev_ms)
+        log(line)
+        if not (excess <= 0 and lse_excess <= 0):
+            raise AssertionError(f"fp32 K2 disagrees at {label}: out excess {excess}, lse excess {lse_excess}")
+        cases.append(case)
+        del qkv, q, k, v, got, got_lse, want, want_lse
+        torch.cuda.empty_cache()
+    return cases
 
 
 def path_grids() -> dict:

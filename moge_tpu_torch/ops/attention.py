@@ -20,11 +20,13 @@ copies.
 
 For bf16, K2 is a Hopper kernel (``wgmma`` on K/V tiles brought by TMA);
 ``flash_plan`` gives its launch (key tile, ring depth, grid, shared memory
-and the three tensor maps) and refuses a view TMA cannot read. Each K2
-launch is also counted under its variant in ``VARIANT_LAUNCHES``:
-``wgmma`` (bf16) or ``fp32`` (the plain-FMA kernel the fp32 parity checks
-run). K2b-dq and K2b-dkv are Hopper kernels of the same kind for bf16
-(Q/dO and K/V rings by TMA, P and dS in registers); ``flash_bwd_plan``
+and the three tensor maps) and refuses a view TMA cannot read. For fp32,
+K2 is a register-blocked FFMA kernel (no TF32); ``f32_plan`` picks which
+of its two builds to launch, and its grid, from the call's shape and the SM
+count. Each K2 launch is also counted under its variant in
+``VARIANT_LAUNCHES``: ``wgmma`` (bf16) or ``fp32``. K2b-dq and K2b-dkv are
+Hopper kernels of the same kind for bf16 (Q/dO and K/V rings by TMA, P and
+dS in registers); ``flash_bwd_plan``
 gives their launches, and each K2b launch is counted once more under its
 variant in ``BWD_VARIANT_LAUNCHES``.
 
@@ -49,8 +51,8 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "attention_bwd_delta", "flash_attention_qkv", "attention_plain",
-           "flash_plan", "FlashPlan", "flash_bwd_plan", "FlashBwdPlan", "LAUNCHES", "DQ_LAUNCHES",
-           "DKV_LAUNCHES", "VARIANT_LAUNCHES", "BWD_VARIANT_LAUNCHES"]
+           "flash_plan", "FlashPlan", "f32_plan", "F32Plan", "flash_bwd_plan", "FlashBwdPlan", "LAUNCHES",
+           "DQ_LAUNCHES", "DKV_LAUNCHES", "VARIANT_LAUNCHES", "BWD_VARIANT_LAUNCHES"]
 
 # kernel launches (never made by the plain versions): K2 by flash_attention_fwd,
 # K2b-dq and K2b-dkv by flash_attention_bwd
@@ -71,6 +73,15 @@ Q_ROWS, KEY_TILE, STAGES = 64, 128, 2
 # rows for K2b-dq, keys for K2b-dkv), K2b-dq's keys per K/V tile, K2b-dkv's
 # queries per Q/dO tile, and the slots of each ring
 BWD_ROWS, BWD_KEY_TILE, BWD_QUERY_TILE, BWD_STAGES = 64, 64, 64, 2
+# the fp32 kernel's query rows per block (csrc/flash_attn.cu), and per build
+# of it (keyed by the blocks an SM holds) the time of a round that leaves 1,
+# 2, ... of its blocks on the busiest SM, relative to a full round of the
+# 2-a-SM build: fits to CUDA-event times on an H100 at B = 1, 2, 8, 12 and
+# Nq = 1370 to 3601, where one block of the 255-register build alone took as
+# long as two, and a full round of 3 of the 168-register build 1.7 of them
+# (a block of it alone is taken as no faster than one of the other build)
+F32_ROWS = 128
+F32_ROUNDS = {2: (1.0, 1.0), 3: (1.0, 1.3, 1.7)}
 _ROW_BYTES = 2 * _HEAD_DIM
 _GRID_YZ = 65535
 
@@ -125,6 +136,31 @@ def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int)
     maps = (_tma_map("q", q, Nq, Q_ROWS), _tma_map("k", k, kv_valid, KEY_TILE), _tma_map("v", v, kv_valid, KEY_TILE))
     smem = Q_ROWS * _ROW_BYTES + 2 * STAGES * KEY_TILE * _ROW_BYTES + 1024  # + slack to align to 1 KB
     return FlashPlan(KEY_TILE, STAGES, (-(-Nq // Q_ROWS), H, B), smem, maps)
+
+
+class F32Plan(NamedTuple):
+    """One fp32 K2 launch: ``rows`` query rows per block, the build that
+    lets ``per_sm`` blocks share an SM, and the grid (query tiles, H, B)."""
+    rows: int
+    per_sm: int
+    grid: Tuple[int, int, int]
+
+
+def f32_plan(B: int, H: int, Nq: int, sms: int) -> F32Plan:
+    """The fp32 kernel's launch for B x H heads of Nq queries on a card of
+    ``sms`` SMs: of the kernel's two builds (3 blocks an SM at 168 registers
+    a thread, or 2 at 255), the one whose busiest SM finishes first. Its
+    blocks run in rounds of ``per_sm`` an SM; each full round, and the last
+    by the blocks it leaves on the busiest SM, costs ``F32_ROUNDS``. Every
+    block walks the same keys, so kv_valid scales both alike."""
+    blocks = B * H * -(-Nq // F32_ROWS)
+
+    def finish(per_sm: int) -> float:
+        full, last = divmod(blocks, per_sm * sms)
+        rounds = F32_ROUNDS[per_sm]
+        return full * rounds[-1] + (rounds[-(-last // sms) - 1] if last else 0.0)
+
+    return F32Plan(F32_ROWS, min(F32_ROUNDS, key=finish), (-(-Nq // F32_ROWS), H, B))
 
 
 class FlashBwdPlan(NamedTuple):
@@ -226,12 +262,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) ->
     """K2 on CUDA tensors: (out, lse). Raises for anything it does not take."""
     global LAUNCHES
     _check(q, k, v, kv_valid)
+    B, Nq, H, D = q.shape
     if q.dtype == torch.bfloat16:
         plan = flash_plan(q, k, v, kv_valid)
         tile, variant = (plan.bc, plan.stages), "wgmma"
     else:
-        tile, variant = (0, 0), "fp32"
-    B, Nq, H, D = q.shape
+        plan = f32_plan(B, H, Nq, _build.sm_count(q.device))
+        tile, variant = (plan.rows, plan.per_sm), "fp32"
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
     lib, fn = _fwd_entry()

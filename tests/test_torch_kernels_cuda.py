@@ -149,6 +149,86 @@ def test_flash_attention(dev, dtype, b, nq, nkv, h, kv_valid):
         assert (out.float() - want).abs().max().item() <= K2_BF16_ABS
 
 
+def _f32_build(monkeypatch, per_sm):
+    """Every fp32 K2 launch takes the build that lets ``per_sm`` blocks share an SM (3: one K^T
+    slot, two barriers a tile; 2: two slots, one barrier)."""
+    plan = attention.f32_plan
+    monkeypatch.setattr(attention, "f32_plan", lambda B, H, Nq, sms: plan(B, H, Nq, sms)._replace(per_sm=per_sm))
+
+
+def _check_f32(q, k, v, kv_valid):
+    """fp32 K2 (one launch, counted under fp32) against the plain version: out and lse at
+    test_flash_attention's tolerances."""
+    before = dict(attention.VARIANT_LAUNCHES)
+    out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
+    assert {k_: n - before[k_] for k_, n in attention.VARIANT_LAUNCHES.items()} == {"wgmma": 0, "fp32": 1}
+    want, want_lse = attention.attention_plain(q, k, v, kv_valid, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
+    torch.testing.assert_close(out, want, rtol=FP32_TOL, atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("per_sm", [3, 2])
+@pytest.mark.parametrize("nq", [127, 128, 129, 257])
+@pytest.mark.parametrize("kv_valid", [1, 31, 32, 33, 63, 64, 65])
+def test_flash_attention_fp32_tile_edges(dev, monkeypatch, per_sm, nq, kv_valid):
+    """The fp32 kernel with Nq on and around its 128-row query tiles and kv_valid on and around
+    its 32-key tiles (one key; whole key tiles past kv_valid, never read), in both builds; q a
+    contiguous tensor, k and v strided views of a (B, N, 3, H, 64) projection."""
+    g = _gen(dev, 1000 * nq + kv_valid)
+    qkv = torch.randn(2, 130, 3, 3, 64, device=dev, generator=g)
+    q = torch.randn(2, nq, 3, 64, device=dev, generator=g) * 2
+    _f32_build(monkeypatch, per_sm)
+    _check_f32(q, qkv[:, :, 1], qkv[:, :, 2], kv_valid)
+
+
+@pytest.mark.parametrize("per_sm", [3, 2])
+def test_flash_attention_fp32_first_keys_that_vanish(dev, monkeypatch, per_sm):
+    """Rows whose first two key tiles score about -112 and whose later keys about 0 +- 2: the
+    running max starts on keys whose probabilities then underflow to 0 (the rescale by
+    exp(m_old - m_new) is 0), against the plain softmax of the same logits; Nq past the last
+    query tile's rows."""
+    g = _gen(dev, 17 + per_sm)
+    k = torch.randn(1, 200, 2, 64, device=dev, generator=g)
+    k[:, :64] = -7 + 0.1 * k[:, :64]
+    v = torch.randn(1, 200, 2, 64, device=dev, generator=g)
+    q = 2 + 0.1 * torch.randn(1, 150, 2, 64, device=dev, generator=g)
+    _f32_build(monkeypatch, per_sm)
+    _check_f32(q, k, v, 180)
+
+
+@pytest.mark.parametrize("b,nq,nkv,h,kv_valid", [
+    # MoGe-1's folder image (2500 tokens + cls), a sequence-parallel chunk on 2 cards (Nq != Nkv,
+    # kv_valid < Nkv), B = 2 at 1370 tokens and a B = 2 chunk on 2 cards
+    (1, 2501, 2501, 16, 2501), (1, 1801, 3602, 16, 3601), (2, 1370, 1370, 16, 1370), (2, 685, 1370, 16, 1369)])
+def test_flash_attention_fp32_main_path_shapes(dev, b, nq, nkv, h, kv_valid):
+    """The fp32 kernel at the build its plan takes, q, k and v strided views of one
+    (B, N, 3, H, 64) projection (q its first Nq tokens), out and lse against the plain version."""
+    g = _gen(dev, nq + nkv)
+    qkv = torch.randn(b, nkv, 3, h, 64, device=dev, generator=g)
+    _check_f32(qkv[:, :nq, 0] * 2, qkv[:, :, 1], qkv[:, :, 2], kv_valid)
+
+
+@pytest.mark.parametrize("per_sm", [3, 2])
+@pytest.mark.parametrize("b,n,h,kv_valid", [(1, 300, 2, 257), (2, 129, 3, None), (1, 2501, 2, None)])
+def test_flash_attention_fp32_backward_reads_either_builds_lse(dev, monkeypatch, per_sm, b, n, h, kv_valid):
+    """fp32 K2b-dq and K2b-dkv recompute the probabilities from the lse of the fp32 forward:
+    gradients through flash_attention_qkv, each build of the forward, against autograd through
+    the plain version (K2B_FP32_REL, as test_flash_attention_backward holds fp32)."""
+    g = _gen(dev, 5 * n + h + per_sm)
+    qkv = torch.randn(b, n, 3, h, 64, device=dev, generator=g).requires_grad_()
+    dout = torch.randn(b, n, h, 64, device=dev, generator=g)
+    _f32_build(monkeypatch, per_sm)
+    before = dict(attention.VARIANT_LAUNCHES)
+    (got,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
+    assert attention.VARIANT_LAUNCHES["fp32"] == before["fp32"] + 1
+    ref = qkv.detach().requires_grad_()
+    (want,) = torch.autograd.grad(attention.attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], kv_valid),
+                                  ref, dout)
+    tol = K2B_FP32_REL * want.abs().max().item()
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert (got[:, :, i] - want[:, :, i]).abs().max().item() <= tol, name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,relu,use_res", [
     ((2, 7, 5, 24, 20), True, True), ((1, 1, 1, 8, 12), False, False),
