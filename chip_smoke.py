@@ -162,13 +162,12 @@ PATH or under $CUDA_HOME). Phases, any failure raising:
 13. ``vis_data --ply`` on one synthetic instance: one vertex per finite
     depth pixel under ``--max_depth``.
 
-On every counted run of the paths below, each K1 launch must have taken the
-vec16 variant (``norm.VARIANT_LAUNCHES``), each K3 and K3-grouped launch a
-pipelined wgmma variant (``conv.VARIANT_LAUNCHES``), each K2
-launch the wgmma kernel (``attention.VARIANT_LAUNCHES``) and each K2b-dq and
-K2b-dkv launch the wgmma kernels (``attention.BWD_VARIANT_LAUNCHES``); every
-inference run must have made its camera solve as one K5 launch
-(``solvers.LAUNCHES``).
+Launches are read from the registry of ``moge_tpu_torch/ops/_build.py``
+(``reset_counts``, ``read_counts``, ``read_variants``). On every counted run
+of the paths below, each K1 launch must have taken the vec16 variant, each
+K3 and K3-grouped launch a pipelined wgmma variant, each K2 launch the
+wgmma kernel and each K2b-dq and K2b-dkv launch the wgmma kernels; every
+inference run must have made its camera solve as one K5 launch.
 
 Prints a ``[time] <phase> <seconds>`` line after each phase and the total
 before the card's line, a JSON line with the kernels' numbers, the inference,
@@ -262,6 +261,9 @@ ALIGN_STEP_RTOL = 2e-2
 # the probes T1-T6 are held to their tools' REL_TOL, relative to max |plain|
 PROBE_KERNELS = ("exp_flash_softmax", "exp_vpu_ceiling", "exp_dense_v1", "exp_dense_v1_unroll", "exp_dense_v2",
                  "exp_dense_bf16")
+# the kernels whose launches read_counts gives
+COUNTED = ("layer_norm", "flash_attention", "flash_attention_dq", "flash_attention_dkv", "conv3x3",
+           "conv3x3_grouped", "dense_align", "camera_solve") + PROBE_KERNELS
 CLOCK_HZ = 1.98e9  # the card's maximum SM clock, read in main (FP32 and MUFU rates scale with it)
 TRAIN_CONFIG = ROOT / "configs" / "train" / "v2.json"
 TRAIN_TOKENS = (1369,)  # 3600 tokens: phase_train_remat's plain steps
@@ -522,9 +524,9 @@ def layer_norm_case(gen, m: int, d: int, offset: int = 0, variant: str = "vec16"
     x = ((torch.randn(m * d + offset, generator=gen, device=dev) * 3.0).to(torch.bfloat16) + 1.0)[offset:].view(m, d)
     s = torch.randn(d, generator=gen, device=dev)
     b = torch.randn(d, generator=gen, device=dev)
-    before = dict(norm.VARIANT_LAUNCHES)
+    before = read_variants("layer_norm")
     got = norm.layer_norm_fp32(x, s, b).float()
-    took = [k for k, v in norm.VARIANT_LAUNCHES.items() if v != before[k]]
+    took = [k for k, v in read_variants("layer_norm").items() if v != before[k]]
     want = norm.layer_norm_plain(x.float(), s, b)
     err = (got - want).abs().max().item()
     tol = want.abs().max().item() * 2.0 ** -8
@@ -612,9 +614,9 @@ def phase_kernels():
                                         [(b, n, None, False, heads) for b, n, heads, _ in remat_vits()]:
         qkv = randn(b, n, 3, heads, 64)
         q, k, v = qkv[:, :, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
-        before = attention.VARIANT_LAUNCHES["wgmma"]
+        before = read_variants("flash_attention")["wgmma"]
         got, got_lse = attention.flash_attention_fwd(q, k, v, kv_valid)
-        if attention.VARIANT_LAUNCHES["wgmma"] != before + 1:
+        if read_variants("flash_attention")["wgmma"] != before + 1:
             raise AssertionError(f"K2 at B={b} N={n} kv_valid={kv_valid} did not launch the wgmma kernel")
         want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid, return_lse=True)
         err = (got.float() - want).abs().max().item()
@@ -672,9 +674,10 @@ def fp32_attention_cases(gen, paths: dict) -> list:
                                      [(1, 1801, 3602, 3601, False)]:
         qkv = torch.randn(b, n, 3, 16, 64, generator=gen, device=dev, dtype=f32)
         q, k, v = qkv[:, :nq, 0] * 2, qkv[:, :, 1], qkv[:, :, 2]  # sharper softmax than unit logits
-        before = dict(attention.VARIANT_LAUNCHES)
+        before = read_variants("flash_attention")
         got, got_lse = attention.flash_attention_fwd(q, k, v, kv_valid)
-        if {key: c - before[key] for key, c in attention.VARIANT_LAUNCHES.items()} != {"wgmma": 0, "fp32": 1}:
+        after = read_variants("flash_attention")
+        if {key: c - before[key] for key, c in after.items()} != {"wgmma": 0, "fp32": 1}:
             raise AssertionError(f"fp32 K2 at B={b} Nq={nq} kv_valid={kv_valid} did not launch the fp32 kernel")
         want, want_lse = attention.attention_plain(q, k, v, kv_valid, return_lse=True)
         err = (got - want).abs().max().item()
@@ -868,9 +871,9 @@ def conv_cases(gen):
                 kern, bias = conv.up2_conv3_expanded(kern, bias, bf16)
             kern = kern.to(bf16).contiguous()
             res = torch.randn(batch, h, w, o, generator=gen, device=dev).to(bf16) if use_res else None
-            before = dict(conv.VARIANT_LAUNCHES)
+            before = read_variants("conv3x3", "conv3x3_grouped")
             got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
-            variant = [k for k, v in conv.VARIANT_LAUNCHES.items() if v != before[k]]
+            variant = [k for k, v in read_variants("conv3x3", "conv3x3_grouped").items() if v != before[k]]
             want_out = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
             err = (got - want_out).abs().max().item()
             rel = err / want_out.abs().max().item()
@@ -922,17 +925,17 @@ VARIANTS_BY_PATH = {}
 
 
 def check_variants(path: str, label: str, counts: dict, runs: int = 1) -> dict:
-    """Every K1 launch of a counted run took the vec16 variant
-    (``norm.VARIANT_LAUNCHES``), every K3 and K3-grouped launch a pipelined
-    wgmma variant (``conv.VARIANT_LAUNCHES``), and every K2, K2b-dq and
-    K2b-dkv launch, bf16 on every counted path, the wgmma kernel
-    (``attention.VARIANT_LAUNCHES``, ``attention.BWD_VARIANT_LAUNCHES``); all
-    set to 0 with the other counts. Records the run's variants under
-    ``path``, divided by ``runs`` when ``counts`` covers that many runs."""
-    from moge_tpu_torch.ops import attention, conv, norm
+    """Every K1 launch of a counted run took the vec16 variant, every K3 and
+    K3-grouped launch a pipelined wgmma variant, and every K2, K2b-dq and
+    K2b-dkv launch, bf16 on every counted path, the wgmma kernel (the
+    registry's variants, set to 0 with the other counts). Records the run's
+    variants under ``path``, divided by ``runs`` when ``counts`` covers that
+    many runs."""
+    from moge_tpu_torch.ops import conv
 
-    variants = {"conv": dict(conv.VARIANT_LAUNCHES), "attention": dict(attention.VARIANT_LAUNCHES),
-                "attention_bwd": dict(attention.BWD_VARIANT_LAUNCHES), "norm": dict(norm.VARIANT_LAUNCHES)}
+    variants = {"conv": read_variants("conv3x3", "conv3x3_grouped"), "attention": read_variants("flash_attention"),
+                "attention_bwd": read_variants("flash_attention_dq", "flash_attention_dkv"),
+                "norm": read_variants("layer_norm")}
     if variants["norm"] != {"vec16": counts["layer_norm"], "scalar": 0}:
         raise AssertionError(f"{label}: K1 launches by variant {variants['norm']}, count {counts['layer_norm']}: "
                              f"not all on the vec16 variant")
@@ -977,9 +980,9 @@ def grouped_cases(gen):
                 kern = kern.to(dtype).contiguous()
                 res = torch.randn(*x.shape[:3], kern.shape[-1], generator=gen, device=dev).to(dtype) \
                     if use_res else None
-                before = conv.GROUPED_LAUNCHES
+                before = launches_of("conv3x3_grouped")
                 got = conv.conv3x3_replicate(x, kern, bias, res, relu).float()
-                if conv.GROUPED_LAUNCHES != before + 1:
+                if launches_of("conv3x3_grouped") != before + 1:
                     raise AssertionError("conv3x3_replicate with grouped weights did not launch K3-grouped")
                 want = conv.conv3x3_plain(x.float(), kern.float(), bias, None if res is None else res.float(), relu)
                 err = (got - want).abs().max().item()
@@ -1034,11 +1037,12 @@ def phase_kernels_train():
         tol = K2B_REL[str(dtype).split(".")[-1]] * max(w.abs().max().item() for w in want)
         err_dq = (dq.float() - want[0]).abs().max().item()
         err_dkv = max((g.float() - w).abs().max().item() for g, w in zip((dk, dv), want[1:]))
-        before = dict(attention.BWD_VARIANT_LAUNCHES)
+        before = read_variants("flash_attention_dq", "flash_attention_dkv")
         again = (attention.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid),
                  *attention.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid))
         variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
-        if {key: c - before[key] for key, c in attention.BWD_VARIANT_LAUNCHES.items()} != \
+        after = read_variants("flash_attention_dq", "flash_attention_dkv")
+        if {key: c - before[key] for key, c in after.items()} != \
                 {key: 2 * (key == variant) for key in before}:
             raise AssertionError(f"K2b at N={n} {dtype} did not launch the {variant} kernels")
         if not all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv))):
@@ -1138,9 +1142,9 @@ def phase_camera_solve() -> tuple:
     for b, h, w in SOLVE_CASES:
         points, mask, _ = camera_point_maps(b, h, w, SEED + b)
         points, mask = torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev)
-        before = solvers.LAUNCHES
+        before = launches_of("camera_solve")
         got = solvers.recover_focal_shift(points, mask)
-        launches = solvers.LAUNCHES - before
+        launches = launches_of("camera_solve") - before
         want = solvers._recover_plain(points, mask, None, (64, 64), 30)
         z_mean = points[..., 2].abs().mean((1, 2))
         focal_err = (got[0] / want[0] - 1).abs().max().item()
@@ -1690,29 +1694,33 @@ def expected_train_launches(config, loss_config, version: str = "v2", remat: boo
 
 
 def reset_counts():
-    from moge_tpu_torch.ops import alignment, attention, conv, norm, solvers
-    from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling
+    from moge_tpu_torch.ops import _build
 
-    norm.LAUNCHES = attention.LAUNCHES = attention.DQ_LAUNCHES = attention.DKV_LAUNCHES = 0
-    conv.LAUNCHES = conv.GROUPED_LAUNCHES = alignment.LAUNCHES = solvers.LAUNCHES = 0
-    conv.VARIANT_LAUNCHES.update(dict.fromkeys(conv.VARIANT_LAUNCHES, 0))
-    attention.VARIANT_LAUNCHES.update(dict.fromkeys(attention.VARIANT_LAUNCHES, 0))
-    attention.BWD_VARIANT_LAUNCHES.update(dict.fromkeys(attention.BWD_VARIANT_LAUNCHES, 0))
-    norm.VARIANT_LAUNCHES.update(dict.fromkeys(norm.VARIANT_LAUNCHES, 0))
-    exp_flash_softmax.LAUNCHES = exp_vpu_ceiling.LAUNCHES = 0
-    exp_dense_pallas.LAUNCHES.update(dict.fromkeys(exp_dense_pallas.LAUNCHES, 0))
+    _build.reset_launches()
+
+
+def read_variants(*kernels: str) -> dict:
+    """Launches since the last reset by variant, summed over ``kernels``."""
+    from moge_tpu_torch.ops import _build
+
+    read = _build.read_launches()
+    variants = {}
+    for kernel in kernels:  # a kernel whose module is not imported has launched nothing
+        for variant, n in read.get(kernel, {}).items():
+            variants[variant] = variants.get(variant, 0) + n
+    return variants
+
+
+def launches_of(kernel: str) -> int:
+    """Launches of ``kernel`` since the last reset."""
+    return sum(read_variants(kernel).values())
 
 
 def read_counts() -> dict:
-    from moge_tpu_torch.ops import alignment, attention, conv, norm, solvers
-    from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling
+    """Launches per kernel since the last reset, the probes' included."""
+    from moge_tpu_torch.tools import exp_dense_pallas, exp_flash_softmax, exp_vpu_ceiling  # noqa: F401 (their kernels)
 
-    return {"layer_norm": norm.LAUNCHES, "flash_attention": attention.LAUNCHES,
-            "flash_attention_dq": attention.DQ_LAUNCHES, "flash_attention_dkv": attention.DKV_LAUNCHES,
-            "conv3x3": conv.LAUNCHES, "conv3x3_grouped": conv.GROUPED_LAUNCHES, "dense_align": alignment.LAUNCHES,
-            "camera_solve": solvers.LAUNCHES,
-            "exp_flash_softmax": exp_flash_softmax.LAUNCHES, "exp_vpu_ceiling": exp_vpu_ceiling.LAUNCHES,
-            **{f"exp_dense_{k}": v for k, v in exp_dense_pallas.LAUNCHES.items()}}
+    return {kernel: launches_of(kernel) for kernel in COUNTED}
 
 
 def phase_slice(card: str):
@@ -2011,13 +2019,12 @@ def phase_serve(card: str, model, per_forward: dict, path: str = "serve", produc
     one answered and each answer within tolerance of its image's own
     batch-1 ``infer``; the mean batch must exceed 1; every batch launches
     ``per_forward`` (on the Hopper variants, recorded under ``path``) and
-    ``products`` int8 products (``quant.LAUNCHES``)."""
+    ``products`` int8 products (kernel ``int8_product`` in the registry)."""
     import threading
 
     import numpy as np
     import torch
 
-    from moge_tpu_torch.ops import quant
     from moge_tpu_torch.scripts.serve import VALID_MAPS, InferenceBatcher
 
     rng = np.random.default_rng(SEED + 5)
@@ -2041,7 +2048,6 @@ def phase_serve(card: str, model, per_forward: dict, path: str = "serve", produc
         warmup_s = time.perf_counter() - t0
         stats0 = dict(batcher.stats)
         reset_counts()
-        products0 = quant.LAUNCHES
         t0 = time.perf_counter()
         clients = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(SERVE_CLIENTS)]
         for t in clients:
@@ -2050,7 +2056,7 @@ def phase_serve(card: str, model, per_forward: dict, path: str = "serve", produc
             t.join(timeout=600)
         wall_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        counts, products_run = read_counts(), quant.LAUNCHES - products0
+        counts, products_run = read_counts(), launches_of("int8_product")
     finally:
         batcher.stop()
     if failures or any(a is None for a in answers):
@@ -3784,10 +3790,10 @@ def sp_kernel_cases() -> tuple:
         kv = torch.randn(sp, batch, chunk, 2, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
         kv = kv.transpose(0, 1).flatten(1, 2)
         q, k, v = qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1]
-        before = attention.VARIANT_LAUNCHES["wgmma"]
+        before = read_variants("flash_attention")["wgmma"]
         got, got_lse = attention.flash_attention_fwd(q, k, v, n_total)
         label = f"{n_total} tokens over {sp} ranks, batch {batch}"
-        if attention.VARIANT_LAUNCHES["wgmma"] != before + 1:
+        if read_variants("flash_attention")["wgmma"] != before + 1:
             raise AssertionError(f"K2 at the SP shape {label} did not launch the wgmma kernel")
         want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), n_total, return_lse=True)
         err = (got.float() - want).abs().max().item()
@@ -4080,11 +4086,11 @@ def phase_int8(card: str):
             x = (torch.randn(m, k, generator=gen, device=dev) * 2).to(torch.bfloat16)
             w = torch.randn(n, k, generator=gen, device=dev) * 0.02
             b = torch.randn(n, generator=gen, device=dev) * 0.02
-            before = quant.LAUNCHES
+            before = launches_of("int8_product")
             card_side = (*quant.quantize(x), *quant.quantize(w))
             card_side += (quant.int8_product(card_side[0], card_side[2]),
                           quant.quant_matmul(x, w, b, card_side[2:4]))
-            if quant.LAUNCHES != before + 2:
+            if launches_of("int8_product") != before + 2:
                 raise AssertionError(f"int8 product at ({m}, {k}) x ({k}, {n}) did not go through _int_mm")
             xc, wc, bc = x.cpu(), w.cpu(), b.cpu()
             cpu_side = (*quant.quantize(xc), *quant.quantize(wc))
@@ -4118,10 +4124,9 @@ def phase_int8(card: str):
         label = f"{SERVE_HW}x{SERVE_HW} num_tokens={tokens} batch={batch}"
         images = torch.from_numpy(rng.uniform(0, 1, (batch, SERVE_HW, SERVE_HW, 3)).astype(np.float32)).to(DEVICE)
         reset_counts()
-        before = quant.LAUNCHES
         out = int8.infer(images, num_tokens=tokens, apply_mask=False)
         synchronize()
-        counts, products = read_counts(), quant.LAUNCHES - before
+        counts, products = read_counts(), launches_of("int8_product")
         if counts != expect or products != per_forward_int8:
             raise AssertionError(f"int8 {label}: launches {counts} and {products} int8 products, expected "
                                  f"{expect} and {per_forward_int8}")

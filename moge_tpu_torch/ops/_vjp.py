@@ -1,8 +1,9 @@
 """Backward of a kernel-backed op as the autograd VJP of its plain version.
 
 K1 and K3 have no backward kernel (nor do their TPU counterparts, whose VJPs
-are XLA formulations): their autograd Functions recompute the plain version
-under autograd in the backward and pull the cotangent through it.
+are XLA formulations): their gradient route, ``PlainVJP``, runs the kernel
+forward and in the backward recomputes the plain version under autograd
+and pulls the cotangent through it.
 """
 
 from __future__ import annotations
@@ -21,3 +22,21 @@ def plain_vjp(fn: Callable, inputs: Sequence[Optional[torch.Tensor]], needs: Seq
     with torch.enable_grad():
         grads = iter(torch.autograd.grad(fn(*leaves, *args), wrt, g) if wrt else ())
     return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)
+
+
+class PlainVJP(torch.autograd.Function):
+    """``PlainVJP.apply(launch, plain, *args)``: ``launch(*args)`` forward;
+    backward the VJP of ``plain(*args)`` with respect to the leading
+    tensor (or None) arguments; the arguments after them pass through."""
+
+    @staticmethod
+    def forward(ctx, launch: Callable, plain: Callable, *args):
+        n = next((i for i, a in enumerate(args) if a is not None and not isinstance(a, torch.Tensor)), len(args))
+        ctx.save_for_backward(*args[:n])
+        ctx.plain, ctx.rest = plain, args[n:]
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = plain_vjp(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], g, *ctx.rest)
+        return (None, None, *grads, *(None,) * len(ctx.rest))

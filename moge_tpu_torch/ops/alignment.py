@@ -51,9 +51,8 @@ from . import _build
 
 __all__ = ["align", "dense_objective", "dense_objective_plain", "sort_stable", "align_depth_scale",
            "align_depth_affine", "align_points_scale", "align_points_scale_z_shift", "align_points_scale_xyz_shift",
-           "align_points_z_shift", "align_points_xyz_shift", "align_affine_lstsq", "LAUNCHES", "SOLVES"]
+           "align_points_z_shift", "align_points_xyz_shift", "align_affine_lstsq", "SOLVES"]
 
-LAUNCHES = 0  # K4 launches made by dense_objective (never by the plain version)
 # When set to a list, every anchor solve appends (scale, shift, anchor index,
 # second index), detached: lets a caller compare the solvers' choices.
 SOLVES: Optional[List[Tuple[torch.Tensor, ...]]] = None
@@ -79,23 +78,16 @@ def dense_objective_plain(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t
     return torch.cat(parts, dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """K4's library and its entry point, typed once."""
-    lib = _build.load("dense_align")
-    fn = lib.moge_dense_objective
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+K4 = _build.Entry("dense_align", "dense_align", "moge_dense_objective",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])
 
 
 def dense_objective(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t: Trunc) -> torch.Tensor:
     """The dense truncated-L1 objective of R problems of length L: (R, L) fp32
     ``A``, ``wx``, ``wy``; ``t`` a float (passed to the kernel as a scalar) or
-    an (R, L) tensor. CUDA tensors run kernel K4; CPU tensors run
-    ``dense_objective_plain``."""
-    global LAUNCHES
+    an (R, L) tensor. CUDA tensors run kernel K4 (kernel ``dense_align`` in
+    ``_build``'s launch count); CPU tensors run ``dense_objective_plain``."""
     if A.device.type == "cpu":
         return dense_objective_plain(A, wx, wy, t)
     per_term = isinstance(t, torch.Tensor)
@@ -109,11 +101,8 @@ def dense_objective(A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t: Trun
     F = torch.empty_like(A)
     if F.numel() == 0:
         return F
-    lib, fn = _kernel()
-    rc = _build.call_on(A.device, fn, A.data_ptr(), wx.data_ptr(), wy.data_ptr(), t.data_ptr() if per_term else None,
-                        0.0 if per_term else float(t), F.data_ptr(), R, L)
-    _build.check(lib, rc, "dense_objective")
-    LAUNCHES += 1
+    K4(None, A.device, A.data_ptr(), wx.data_ptr(), wy.data_ptr(), t.data_ptr() if per_term else None,
+       0.0 if per_term else float(t), F.data_ptr(), R, L)
     return F
 
 

@@ -23,26 +23,20 @@ For bf16, K2 is a Hopper kernel (``wgmma`` on K/V tiles brought by TMA);
 and the three tensor maps) and refuses a view TMA cannot read. For fp32,
 K2 is a register-blocked FFMA kernel (no TF32); ``f32_plan`` picks which
 of its two builds to launch, and its grid, from the call's shape and the SM
-count. Each K2 launch is also counted under its variant in
-``VARIANT_LAUNCHES``: ``wgmma`` (bf16) or ``fp32``. K2b-dq and K2b-dkv are
-Hopper kernels of the same kind for bf16 (Q/dO and K/V rings by TMA, P and
-dS in registers); ``flash_bwd_plan``
-gives their launches, and each K2b launch is counted once more under its
-variant in ``BWD_VARIANT_LAUNCHES``.
+count. K2b-dq and K2b-dkv are Hopper kernels of the same kind for bf16
+(Q/dO and K/V rings by TMA, P and dS in registers); ``flash_bwd_plan``
+gives their launches.
 
-K2 is also the dispatcher op ``moge::flash_attention(q, k, v, kv_valid) ->
-(out, lse)``, registered when this module is imported: its CUDA
-implementation is the launch (``_launch``: the checks, ``flash_plan``, the
-ctypes call, the counts, all at run time), its CPU implementation the
-plain version, its fake implementation the output shapes. Without a
-gradient to take, the forward entries call the op while a program is
-traced (``torch.export``) and the launch directly otherwise.
+K2 is the op ``moge::flash_attention(q, k, v, kv_valid) -> (out, lse)``.
+Registration, routing and the launch count (kernels ``flash_attention``,
+``flash_attention_dq`` and ``flash_attention_dkv``, each under variant
+``wgmma`` (bf16) or ``fp32``): ``_build``. ``flash_attention_fwd`` takes no
+gradient; ``flash_attention_qkv``'s gradient route is ``_FlashQKV``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -51,21 +45,19 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "attention_bwd_delta", "flash_attention_qkv", "attention_plain",
-           "flash_plan", "FlashPlan", "f32_plan", "F32Plan", "flash_bwd_plan", "FlashBwdPlan", "LAUNCHES",
-           "DQ_LAUNCHES", "DKV_LAUNCHES", "VARIANT_LAUNCHES", "BWD_VARIANT_LAUNCHES"]
-
-# kernel launches (never made by the plain versions): K2 by flash_attention_fwd,
-# K2b-dq and K2b-dkv by flash_attention_bwd
-LAUNCHES = 0
-DQ_LAUNCHES = 0
-DKV_LAUNCHES = 0
-VARIANT_LAUNCHES = {"wgmma": 0, "fp32": 0}  # every K2 launch, counted once more under its variant
-BWD_VARIANT_LAUNCHES = {"wgmma": 0, "fp32": 0}  # every K2b-dq and K2b-dkv launch, the same way
+           "flash_plan", "FlashPlan", "f32_plan", "F32Plan", "flash_bwd_plan", "FlashBwdPlan"]
 
 _HEAD_DIM = 64  # every DINOv2 arch of the repo (S/B/L/G/T) has 64-wide heads
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 9
-             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+VARIANTS = ("wgmma", "fp32")  # the variant of each K2, K2b-dq and K2b-dkv launch: bf16, fp32
+K2 = _build.Entry("flash_attention", "flash_attn", "moge_flash_attention_fwd",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 9 + [ctypes.c_float]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p], variants=VARIANTS)
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+K2B_DQ = _build.Entry("flash_attention_dq", "flash_attn_bwd", "moge_flash_attention_bwd_dq",
+                      [ctypes.c_void_p] * 7 + _BWD_TAIL, variants=VARIANTS)
+K2B_DKV = _build.Entry("flash_attention_dkv", "flash_attn_bwd", "moge_flash_attention_bwd_dkv",
+                       [ctypes.c_void_p] * 8 + _BWD_TAIL, variants=VARIANTS)
 # the bf16 kernel's query rows per block (one warpgroup), keys per K/V tile
 # and ring slots, as csrc/flash_fwd.cuh builds it
 Q_ROWS, KEY_TILE, STAGES = 64, 128, 2
@@ -208,16 +200,6 @@ def flash_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torc
                         tuple(tuple(t.stride()[:3]) for t in outs))
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_entry():
-    """K2's library and its C entry point, argtypes set (once)."""
-    lib = _build.load("flash_attn")
-    fn = lib.moge_flash_attention_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_valid: Optional[int] = None, return_lse: bool = False):
     """Reference attention: (B, Nq, H, D) x (B, Nkv, H, D) -> (B, Nq, H, D)."""
@@ -260,7 +242,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int, **m
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on CUDA tensors: (out, lse). Raises for anything it does not take."""
-    global LAUNCHES
     _check(q, k, v, kv_valid)
     B, Nq, H, D = q.shape
     if q.dtype == torch.bfloat16:
@@ -271,19 +252,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: int) ->
         tile, variant = (plan.rows, plan.per_sm), "fp32"
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
-    lib, fn = _fwd_entry()
-    rc = _build.call_on(q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                        B, H, Nq, kv_valid, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], D ** -0.5,
-                        _DTYPES[q.dtype], *tile)
-    _build.check(lib, rc, "flash_attention")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[variant] += 1
+    K2(variant, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Nq,
+       kv_valid, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], D ** -0.5, _DTYPES[q.dtype], *tile)
     return out, lse
 
 
-def _plain_op(q, k, v, kv_valid):
-    out, lse = attention_plain(q, k, v, kv_valid, return_lse=True)
-    return out.contiguous(), lse.contiguous()
+def _plain_lse(q, k, v, kv_valid):
+    return attention_plain(q, k, v, kv_valid, return_lse=True)
 
 
 def _fake(q, k, v, kv_valid):
@@ -291,8 +266,9 @@ def _fake(q, k, v, kv_valid):
     return q.new_empty((B, Nq, H, D)), q.new_empty((B, H, Nq), dtype=torch.float32)
 
 
-_build.define_op("flash_attention(Tensor q, Tensor k, Tensor v, int kv_valid) -> (Tensor, Tensor)", _launch,
-                 _plain_op, _fake)
+# K2's forward entry takes no gradient: with one to take it launches as well
+ROUTER = _build.kernel_op("flash_attention(Tensor q, Tensor k, Tensor v, int kv_valid) -> (Tensor, Tensor)",
+                          _launch, _plain_lse, _fake, autograd=_launch)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -302,13 +278,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors run kernel K2; CPU tensors run ``attention_plain``. Without
     a gradient to take, a traced program records the op
     ``moge::flash_attention``."""
-    if kv_valid is None:
-        kv_valid = k.shape[1]
-    if not _build.needs_grad(q, k, v) and torch.compiler.is_compiling():
-        return torch.ops.moge.flash_attention(q, k, v, kv_valid)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, kv_valid, return_lse=True)
-    return _launch(q, k, v, kv_valid)
+    return ROUTER(q, k, v, k.shape[1] if kv_valid is None else kv_valid)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -330,7 +300,7 @@ def _bwd_setup(q, k, v, dout, lse, delta, kv_valid, outs):
     """Check the backward kernels' operands (for bf16, also what
     ``flash_bwd_plan`` refuses; the C side builds the maps); allocate
     missing outputs like their inputs. Returns the variant the launch takes
-    with the library and the call's argument groups."""
+    and the call's argument groups."""
     _check(q, k, v, kv_valid, dout=dout)
     B, Nq, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
@@ -350,11 +320,10 @@ def _bwd_setup(q, k, v, dout, lse, delta, kv_valid, outs):
         for t in filled:
             _store_check(t)
         variant = "wgmma"
-    lib = _bwd_entries()[0]
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
     dims = (B, H, Nq, k.shape[1], kv_valid)
     tail = (q.shape[-1] ** -0.5, _DTYPES[q.dtype])
-    return lib, variant, head, dims, tail, filled
+    return variant, head, dims, tail, filled
 
 
 def attention_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -366,43 +335,19 @@ def attention_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return prod.transpose(1, 2).sum(-1).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_entries():
-    """K2b's library and its two C entry points (dq, dkv), argtypes set (once)."""
-    lib = _build.load("flash_attn_bwd")
-    entries = []
-    for name, pointers in (("moge_flash_attention_bwd_dq", 7), ("moge_flash_attention_bwd_dkv", 8)):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        entries.append(fn)
-    return lib, *entries
-
-
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid: int, dq: Optional[torch.Tensor] = None):
     """dq by kernel K2b-dq (CUDA tensors only)."""
-    global DQ_LAUNCHES
-    lib, variant, head, dims, tail, (dq,) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid, [("dq", dq, q)])
-    rc = _build.call_on(q.device, _bwd_entries()[1], *head, dq.data_ptr(), *dims, _strides(q, k, v, dout, dq),
-                        *tail)
-    _build.check(lib, rc, "flash_attention_bwd_dq")
-    DQ_LAUNCHES += 1
-    BWD_VARIANT_LAUNCHES[variant] += 1
+    variant, head, dims, tail, (dq,) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid, [("dq", dq, q)])
+    K2B_DQ(variant, q.device, *head, dq.data_ptr(), *dims, _strides(q, k, v, dout, dq), *tail)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid: int, dk: Optional[torch.Tensor] = None,
                             dv: Optional[torch.Tensor] = None):
     """(dk, dv) by kernel K2b-dkv (CUDA tensors only); keys at or past kv_valid get zeros."""
-    global DKV_LAUNCHES
-    lib, variant, head, dims, tail, (dk, dv) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid,
-                                                          [("dk", dk, k), ("dv", dv, v)])
-    rc = _build.call_on(q.device, _bwd_entries()[2], *head, dk.data_ptr(), dv.data_ptr(), *dims,
-                        _strides(q, k, v, dout, dk, dv), *tail)
-    _build.check(lib, rc, "flash_attention_bwd_dkv")
-    DKV_LAUNCHES += 1
-    BWD_VARIANT_LAUNCHES[variant] += 1
+    variant, head, dims, tail, (dk, dv) = _bwd_setup(q, k, v, dout, lse, delta, kv_valid,
+                                                     [("dk", dk, k), ("dv", dv, v)])
+    K2B_DKV(variant, q.device, *head, dk.data_ptr(), dv.data_ptr(), *dims, _strides(q, k, v, dout, dk, dv), *tail)
     return dk, dv
 
 
@@ -434,7 +379,7 @@ class _FlashQKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, kv_valid: int):
-        out, lse = _launch(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
+        out, lse = _launch(*_views(qkv), kv_valid)
         ctx.save_for_backward(qkv, out, lse)
         ctx.kv_valid = kv_valid
         return out
@@ -443,8 +388,7 @@ class _FlashQKV(torch.autograd.Function):
     def backward(ctx, dout: torch.Tensor):
         qkv, out, lse = ctx.saved_tensors
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        flash_attention_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out, lse, dout, ctx.kv_valid,
-                            dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2])
+        flash_attention_bwd(*_views(qkv), out, lse, dout, ctx.kv_valid, *_views(dqkv))
         return dqkv, None
 
 
@@ -454,10 +398,16 @@ def flash_attention_qkv(qkv: torch.Tensor, kv_valid: Optional[int] = None) -> to
     tensors run K2 forward and K2b-dq/K2b-dkv backward; CPU tensors run
     ``attention_plain`` under autograd. Without a gradient to take it is
     ``flash_attention`` on the three views."""
-    if kv_valid is None:
-        kv_valid = qkv.shape[1]
-    if not _build.needs_grad(qkv):
-        return flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
-    if qkv.device.type == "cpu":
-        return attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], kv_valid)
-    return _FlashQKV.apply(qkv, kv_valid)
+    return QKV_ROUTER(qkv, qkv.shape[1] if kv_valid is None else kv_valid)
+
+
+def _views(qkv: torch.Tensor):
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+# the routes of K2 over one qkv projection: without a gradient, K2's own on
+# the three views; with one, attention_plain under autograd or _FlashQKV
+QKV_ROUTER = _build.Router("flash_attention", 1,
+                           lambda qkv, kv: torch.ops.moge.flash_attention(*_views(qkv), kv)[0],
+                           lambda qkv, kv: attention_plain(*_views(qkv), kv),
+                           lambda qkv, kv: _launch(*_views(qkv), kv)[0], _FlashQKV.apply)

@@ -4,11 +4,9 @@
 tensors and runs ``conv3x3_plain`` for CPU tensors. The plain version is the
 math of the JAX package's ``conv3x3_xla``: [ReLU on the input], replicate
 pad, VALID 3x3 conv with fp32 accumulation, + bias, + residual in fp32, one
-rounding to the input dtype.
-
-On the card K3 sits in an autograd Function whose backward is the autograd
-VJP of ``conv3x3_plain`` (x, kernel, bias and residual; ``input_relu``
-honoured), as the JAX package's VJP is an XLA formulation.
+rounding to the input dtype. The backward is the autograd VJP of
+``conv3x3_plain`` (x, kernel, bias and residual; ``input_relu`` honoured),
+as the JAX package's VJP is an XLA formulation.
 
 ``conv3x3_up2_bilinear`` is the bilinear-2x upsample followed by a 3x3
 conv, computed as one K3 conv at the low resolution over parity-expanded
@@ -18,26 +16,20 @@ Grouped form (the batched decoder heads): a (G, 3, 3, C, O) kernel with a
 (G, O) bias applies weight group b // B0 to batch entry b of a (G*B0, H, W,
 C) input, as the JAX package's ``conv3x3_xla`` and ``_conv3x3_pallas`` do.
 CUDA tensors run kernel K3-grouped (the same source, the group on the
-grid), counted in ``GROUPED_LAUNCHES``; its backward is again the plain
-version's VJP (JAX's grouped VJP is the vmapped XLA formulation).
+grid).
 
 For bf16 the kernel is a pipelined implicit GEMM on ``wgmma``; its output
-tile and copy width are chosen per launch by ``_tile_config``, and each
-launch is also counted under its variant in ``VARIANT_LAUNCHES``:
-``wgmma_tma_cp16`` (weights by TMA, input by 16-byte cp.async),
-``wgmma_cp8`` / ``wgmma_cp4`` (both by 8- or 4-byte cp.async): the
-pipelined variants, ``PIPELINED``, which every main-path shape takes;
+tile and copy width are chosen per launch by ``_tile_config``, which sets
+the launch's variant: ``wgmma_tma_cp16`` (weights by TMA, input by 16-byte
+cp.async), ``wgmma_cp8`` / ``wgmma_cp4`` (both by 8- or 4-byte cp.async):
+the pipelined variants, ``PIPELINED``, which every main-path shape takes;
 ``wgmma_generic`` (2-byte loads through registers, for an odd C or O or
 misaligned pointers) and ``fp32`` (the scalar fp32 kernel).
 
-K3 and K3-grouped are also the dispatcher op ``moge::conv3x3(x, kernel,
-bias, residual, input_relu)`` (a 5-dim kernel is K3-grouped), registered
-when this module is imported: its CUDA implementation is the launch
-(``_launch``: the checks, ``_tile_config`` and ``_alignment``, the ctypes
-call, the counts, all at run time), its CPU implementation the plain
-version, its fake implementation the output shape. Without a gradient to
-take, ``conv3x3_replicate`` calls the op while a program is traced
-(``torch.export``) and the launch directly otherwise.
+K3 and K3-grouped are the op ``moge::conv3x3(x, kernel, bias, residual,
+input_relu)`` (a 5-dim kernel is K3-grouped). Registration, routing and the
+launch count (kernels ``conv3x3`` and ``conv3x3_grouped``, each under the
+variants above): ``_build``.
 
 Weights use the JAX layout (3, 3, C, O); activations are NHWC.
 """
@@ -52,21 +44,18 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._vjp import plain_vjp
 
 __all__ = ["conv3x3_replicate", "conv3x3_plain", "conv3x3_up2_bilinear", "up2_conv3_weights",
-           "up2_conv3_expanded", "depth_to_space2", "LAUNCHES", "GROUPED_LAUNCHES", "VARIANT_LAUNCHES",
-           "PIPELINED"]
+           "up2_conv3_expanded", "depth_to_space2", "PIPELINED", "VARIANTS"]
 
-LAUNCHES = 0  # K3 launches made by conv3x3_replicate (never by the plain version)
-GROUPED_LAUNCHES = 0  # K3-grouped launches (5-dim kernels), counted apart
 PIPELINED = ("wgmma_tma_cp16", "wgmma_cp8", "wgmma_cp4")  # the bf16 variants that copy asynchronously
-# every K3 and K3-grouped launch, counted once more under the variant it took
-VARIANT_LAUNCHES = dict.fromkeys(PIPELINED + ("wgmma_generic", "fp32"), 0)
+VARIANTS = PIPELINED + ("wgmma_generic", "fp32")  # every variant a K3 or K3-grouped launch takes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-_GROUPED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+K3 = _build.Entry("conv3x3", "conv3x3", "moge_conv3x3", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                  + [ctypes.c_void_p], variants=VARIANTS)
+K3_GROUPED = _build.Entry("conv3x3_grouped", "conv3x3", "moge_conv3x3_grouped", [ctypes.c_void_p] * 5
+                          + [ctypes.c_int] * 11 + [ctypes.c_void_p], variants=VARIANTS)
 N_TILES = (16, 32, 64, 128)  # wgmma widths the bf16 kernel is built for
 
 
@@ -147,7 +136,6 @@ def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Te
 
 
 def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
-    global LAUNCHES, GROUPED_LAUNCHES
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
@@ -169,60 +157,25 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
     y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib, shared, grouped = _entries()
-    fn, dims = (grouped, (G, B // G, H, W, C, O)) if G else (shared, (B, H, W, C, O))
+    entry, dims = (K3_GROUPED, (G, B // G, H, W, C, O)) if G else (K3, (B, H, W, C, O))
     if x.dtype == torch.bfloat16:
         tile = _tile_config(G or 1, B // (G or 1), H, W, C, O, _build.sm_count(x.device),
                             _alignment(x, kernel, residual, y))
         variant = tile.variant
     else:
         tile, variant = (0, 0, 0), "fp32"
-    rc = _build.call_on(x.device, fn, x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
-                        None if residual is None else residual.data_ptr(), y.data_ptr(), *dims, int(input_relu),
-                        _DTYPES[x.dtype], *tile)
-    _build.check(lib, rc, "conv3x3_replicate")
-    if G:
-        GROUPED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    VARIANT_LAUNCHES[variant] += 1
+    entry(variant, x.device, x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+          None if residual is None else residual.data_ptr(), y.data_ptr(), *dims, int(input_relu),
+          _DTYPES[x.dtype], *tile)
     return y
-
-
-@functools.lru_cache(maxsize=None)
-def _entries():
-    """K3's library and its two C entry points (shared, grouped weights), argtypes set (once)."""
-    lib = _build.load("conv3x3")
-    for fn, argtypes in ((lib.moge_conv3x3, _ARGTYPES), (lib.moge_conv3x3_grouped, _GROUPED_ARGTYPES)):
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, lib.moge_conv3x3, lib.moge_conv3x3_grouped
-
-
-def _plain_op(x, kernel, bias, residual, input_relu):
-    return conv3x3_plain(x, kernel, bias, residual, input_relu).contiguous()
 
 
 def _fake(x, kernel, bias, residual, input_relu):
     return x.new_empty((*x.shape[:3], kernel.shape[-1]))
 
 
-_build.define_op("conv3x3(Tensor x, Tensor kernel, Tensor? bias, Tensor? residual, bool input_relu) -> Tensor",
-                 _launch, _plain_op, _fake)
-
-
-class _Conv3x3(torch.autograd.Function):
-    """K3 forward; backward = VJP of ``conv3x3_plain``."""
-
-    @staticmethod
-    def forward(ctx, x, kernel, bias, residual, input_relu):
-        ctx.save_for_backward(x, kernel, bias, residual)
-        ctx.input_relu = input_relu
-        return _launch(x, kernel, bias, residual, input_relu)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (*plain_vjp(conv3x3_plain, ctx.saved_tensors, ctx.needs_input_grad, g, ctx.input_relu), None)
+ROUTER = _build.kernel_op("conv3x3(Tensor x, Tensor kernel, Tensor? bias, Tensor? residual, bool input_relu) "
+                          "-> Tensor", _launch, conv3x3_plain, _fake)
 
 
 def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
@@ -238,15 +191,7 @@ def conv3x3_replicate(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torc
     (differentiable: backward in plain PyTorch); CPU tensors run
     ``conv3x3_plain``. Without a gradient to take, a traced program records
     the op ``moge::conv3x3``."""
-    grad = _build.needs_grad(x, kernel, bias, residual)
-    if not grad and torch.compiler.is_compiling():
-        return torch.ops.moge.conv3x3(x, kernel, bias, residual, input_relu)
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, kernel, bias, residual, input_relu)
-    _build.require_cuda_tensor(x, "conv3x3_replicate")
-    if not grad:
-        return _launch(x, kernel, bias, residual, input_relu)
-    return _Conv3x3.apply(x, kernel, bias, residual, input_relu)
+    return ROUTER(x, kernel, bias, residual, input_relu)
 
 
 # bilinear 2x (half-pixel, edge-clamped) row coefficients per (output parity

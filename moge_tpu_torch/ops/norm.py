@@ -8,22 +8,12 @@ eps inside the rsqrt, fp32 affine, one rounding to the input dtype.
 Each launch follows ``ln_plan``: the ``vec16`` variant (16-byte accesses)
 where D is a multiple of 16 bytes and every pointer is 16-byte aligned, else
 ``scalar``; the accesses per lane per row; a grid sized from the card's SM
-count, each warp walking several rows. Each launch is also counted under its
-variant in ``VARIANT_LAUNCHES``.
+count, each warp walking several rows.
 
-K1 is also the dispatcher op ``moge::layer_norm(x, scale, bias, eps)``,
-registered when this module is imported: its CUDA implementation is the
-launch (``_launch``: the plan, the ctypes call, the counts, the error
-check, all at run time), its CPU implementation the plain version, and its
-fake implementation gives the output's shape, so ``torch.export`` records
-the op as one node and an exported program launches K1 when it runs.
-
-On the card K1 sits in an autograd Function whose backward is the autograd
-VJP of ``layer_norm_plain``, as the JAX package's ``_ln_bwd`` is the VJP of
-``_ln_xla``: the TPU has no backward kernel for it either. Where no
-gradient is needed ``layer_norm_fp32`` calls the op while a program is
-traced and the launch directly otherwise: the dispatcher's hop costs host
-time on every call (PERF.md).
+K1 is the op ``moge::layer_norm(x, scale, bias, eps)``; its backward is the
+autograd VJP of ``layer_norm_plain``, as the JAX package's ``_ln_bwd`` is
+the VJP of ``_ln_xla``. Registration, routing and the launch count (kernel
+``layer_norm``, variants ``vec16``/``scalar``): ``_build``.
 """
 
 from __future__ import annotations
@@ -35,12 +25,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from ._vjp import plain_vjp
 
-__all__ = ["layer_norm_fp32", "layer_norm_plain", "ln_plan", "LnPlan", "LAUNCHES", "VARIANT_LAUNCHES"]
-
-LAUNCHES = 0  # kernel launches made by layer_norm_fp32 (never by the plain version)
-VARIANT_LAUNCHES = {"vec16": 0, "scalar": 0}  # every K1 launch, counted once more under its variant
+__all__ = ["layer_norm_fp32", "layer_norm_plain", "ln_plan", "LnPlan"]
 
 _MAX_D = 2048  # the kernel holds a row in registers: at most 64 values per lane
 WARPS = 4  # warps per block (kWarps in csrc/layernorm.cu)
@@ -52,8 +38,9 @@ _VARIANTS = {"vec16": 0, "scalar": 1}
 # (csrc/layernorm.cu's MOGE_LN_CASE list)
 VECTORS = {("vec16", 2): (1, 2, 3, 4, 6, 8), ("vec16", 4): (1, 2, 3, 4, 6, 8, 12, 16),
            ("scalar", 2): (2, 4, 8, 16, 24, 32, 48, 64), ("scalar", 4): (2, 4, 8, 16, 24, 32, 48, 64)}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4
-             + [ctypes.c_void_p])
+K1 = _build.Entry("layer_norm", "layernorm", "moge_layer_norm",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p], variants=_VARIANTS)
 
 
 class LnPlan(NamedTuple):
@@ -103,18 +90,7 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The library and its entry point, typed once."""
-    lib = _build.load("layernorm")
-    fn = lib.moge_layer_norm
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    global LAUNCHES
     D = x.shape[-1]
     if x.dtype not in _DTYPES:
         raise TypeError(f"layer_norm_fp32 kernel takes float32 or bfloat16, got {x.dtype}")
@@ -131,38 +107,17 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
                  _build.sm_count(x.device))  # raises unless 0 < D <= 2048
     if M == 0:
         return y
-    lib, fn = _kernel()
-    rc = _build.call_on(x.device, fn, *ptrs, M, D, eps, _DTYPES[x.dtype], _VARIANTS[plan.variant], plan.vectors,
-                        plan.grid)
-    _build.check(lib, rc, "layer_norm_fp32")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[plan.variant] += 1
+    K1(plan.variant, x.device, *ptrs, M, D, eps, _DTYPES[x.dtype], _VARIANTS[plan.variant], plan.vectors,
+       plan.grid)
     return y
-
-
-def _plain_op(x, scale, bias, eps):
-    return layer_norm_plain(x, scale, bias, eps).contiguous()
 
 
 def _fake(x, scale, bias, eps):
     return x.new_empty(x.shape)
 
 
-_build.define_op("layer_norm(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor", _launch, _plain_op, _fake)
-
-
-class _LayerNorm(torch.autograd.Function):
-    """K1 forward; backward = VJP of ``layer_norm_plain`` (grads to x, scale, bias)."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.eps = eps
-        return _launch(x, scale, bias, eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (*plain_vjp(layer_norm_plain, ctx.saved_tensors, ctx.needs_input_grad, g, ctx.eps), None)
+ROUTER = _build.kernel_op("layer_norm(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor", _launch,
+                          layer_norm_plain, _fake)
 
 
 def layer_norm_fp32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -174,12 +129,4 @@ def layer_norm_fp32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     CPU tensors run ``layer_norm_plain``. Without a gradient to take, a
     traced program (``torch.export``, ``torch.compile``) records the op
     ``moge::layer_norm``."""
-    grad = _build.needs_grad(x, scale, bias)
-    if not grad and torch.compiler.is_compiling():
-        return torch.ops.moge.layer_norm(x, scale, bias, eps)
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    _build.require_cuda_tensor(x, "layer_norm_fp32")
-    if not grad:
-        return _launch(x, scale, bias, eps)
-    return _LayerNorm.apply(x, scale, bias, eps)
+    return ROUTER(x, scale, bias, eps)

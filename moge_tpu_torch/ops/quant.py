@@ -16,7 +16,8 @@ never falls back to a floating-point product. On a CPU tensor it is the
 plain version: an fp64 product, exact for every int8 operand of K < 2**38
 terms (|sum| < 2**53). The JAX package computes this product with XLA
 outside any Pallas kernel: it is not one of the ported TPU kernels, and
-``LAUNCHES`` counts its card calls only to show that a path took it.
+its card calls are counted (kernel ``int8_product`` in ``_build``'s launch
+count) only to show that a path took it.
 
 ``QuantLinear`` is an ``nn.Linear`` twin (same parameter names, fp32) whose
 forward is ``quant_matmul``; the quantized weight and its scales are
@@ -36,10 +37,11 @@ import torch
 from torch import nn
 
 from ..models._weights import derived
+from . import _build
 
-__all__ = ["quantize", "int8_product", "quant_matmul", "QuantLinear", "LAUNCHES"]
+__all__ = ["quantize", "int8_product", "quant_matmul", "QuantLinear"]
 
-LAUNCHES = 0  # torch._int_mm calls made by int8_product (never by the plain version)
+_build.declare("int8_product")
 
 
 def quantize(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,7 +57,6 @@ def quantize(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def int8_product(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (N, K) int8 transposed -> (M, N) int32."""
-    global LAUNCHES
     if x_q.device.type == "cpu":
         return (x_q.double() @ w_q.double().T).to(torch.int32)
     (m, k), n = x_q.shape, w_q.shape[0]
@@ -63,7 +64,7 @@ def int8_product(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the int8 product on the card needs more than 16 rows and K, N multiples of 8; "
                          f"got ({m}, {k}) @ ({k}, {n})")
     acc = torch._int_mm(x_q, w_q.T)
-    LAUNCHES += 1
+    _build.count("int8_product")
     return acc
 
 

@@ -14,13 +14,14 @@ analytically. Accept and damping rules are the JAX package's.
 per image, the gather, the downsample and the whole LM loop in one launch,
 no host synchronisation) for CUDA tensors and the plain version
 (``_recover_plain``: ``solve_optimal_focal_shift`` / ``solve_optimal_shift``
-on the downsampled map) for CPU tensors. K5 is also the dispatcher op
-``moge::camera_solve(points, mask, focal, out_h, out_w, iters)``, registered
-when this module is imported (CUDA implementation the launch, CPU
-implementation the plain version, fake implementation two (B,) outputs), so
-``torch.export`` records the solve as one node. The samples' uv and source
-pixels come from a table built once per (H, W, downsample) and device on the
-host, exactly as the plain path takes them, and copied from pinned memory.
+on the downsampled map) for CPU tensors. The samples' uv and source pixels
+come from a table built once per (H, W, downsample) and device on the host,
+exactly as the plain path takes them, and copied from pinned memory.
+
+K5 is the op ``moge::camera_solve(points, mask, focal, out_h, out_w,
+iters)``. It takes no gradient, so a traced program records the op whatever
+the device. Registration, routing and the launch count (kernel
+``camera_solve``): ``_build``.
 """
 
 from __future__ import annotations
@@ -36,8 +37,6 @@ from .geometry import normalized_view_plane_uv
 from .resize import resize_2d
 
 __all__ = ["recover_focal_shift", "solve_optimal_focal_shift", "solve_optimal_shift"]
-
-LAUNCHES = 0  # K5 launches made by recover_focal_shift (never by the plain version)
 
 _EPS = 1e-12
 
@@ -148,9 +147,10 @@ def _recover_plain(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Op
     return torch.where(degenerate, 1.0, est_focal), torch.where(degenerate, 0.0, shift)
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+K5 = _build.Entry("camera_solve", "camera_solve", "moge_camera_solve",
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p])
 
 
 def sample_table(height: int, width: int, out_h: int, out_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,16 +172,6 @@ def _device_table(height: int, width: int, out_h: int, out_w: int,
     memory that does not block the host (on the current stream, which K5's
     launches share)."""
     return tuple(t.pin_memory().to(device, non_blocking=True) for t in sample_table(height, width, out_h, out_w))
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """K5's library and its entry point, typed once."""
-    lib = _build.load("camera_solve")
-    fn = lib.moge_camera_solve
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
 
 
 def _check(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[torch.Tensor]) -> None:
@@ -208,7 +198,6 @@ def _check(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[t
 
 def _launch(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[torch.Tensor], out_h: int,
             out_w: int, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    global LAUNCHES
     _build.require_cuda_tensor(points, "camera_solve")
     _check(points, mask, focal)
     n_items, height, width, _ = points.shape
@@ -217,13 +206,9 @@ def _launch(points: torch.Tensor, mask: Optional[torch.Tensor], focal: Optional[
     if n_items == 0:
         return est_focal, shift
     uv, pixel = _device_table(height, width, out_h, out_w, points.device)
-    lib, fn = _kernel()
-    rc = _build.call_on(points.device, fn, points.data_ptr(), None if mask is None else mask.data_ptr(),
-                        None if focal is None else focal.data_ptr(), 0 if focal is None else focal.stride(0),
-                        uv.data_ptr(), pixel.data_ptr(), est_focal.data_ptr(), shift.data_ptr(), n_items,
-                        height * width, out_h * out_w, iters)
-    _build.check(lib, rc, "camera_solve")
-    LAUNCHES += 1
+    K5(None, points.device, points.data_ptr(), None if mask is None else mask.data_ptr(),
+       None if focal is None else focal.data_ptr(), 0 if focal is None else focal.stride(0), uv.data_ptr(),
+       pixel.data_ptr(), est_focal.data_ptr(), shift.data_ptr(), n_items, height * width, out_h * out_w, iters)
     return est_focal, shift
 
 
@@ -240,6 +225,20 @@ def _fake(points, mask, focal, out_h, out_w, iters):
 
 _build.define_op("camera_solve(Tensor points, Tensor? mask, Tensor? focal, int out_h, int out_w, int iters) "
                  "-> (Tensor, Tensor)", _launch, _plain_op, _fake)
+
+
+def _kernel_args(points, mask, focal, downsample_size, iters):
+    """The op's arguments: an fp32 contiguous map, a bool contiguous mask."""
+    points = points.float().contiguous()
+    if mask is not None:
+        mask = (mask if mask.dtype == torch.bool else mask > 0).contiguous()
+    return points, mask, focal, *downsample_size, iters
+
+
+# no argument takes a gradient: a traced program records the op, a CPU
+# tensor runs the plain version, anything else the launch
+ROUTER = _build.Router("camera_solve", 0, lambda *args: torch.ops.moge.camera_solve(*_kernel_args(*args)),
+                       _recover_plain, lambda *args: _launch(*_kernel_args(*args)), None)
 
 
 def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -260,14 +259,5 @@ def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = Non
     f = focal
     if f is not None:
         f = torch.as_tensor(f, dtype=torch.float32, device=points.device).reshape(-1).expand(pts.shape[0])
-    compiling = torch.compiler.is_compiling()
-    if points.device.type == "cpu" and not compiling:
-        est_focal, shift = _recover_plain(pts, m, f, tuple(downsample_size), iters)
-    else:
-        pts = pts.float().contiguous()
-        if m is not None:
-            m = (m if m.dtype == torch.bool else m > 0).contiguous()
-        out_h, out_w = downsample_size
-        solve = torch.ops.moge.camera_solve if compiling else _launch
-        est_focal, shift = solve(pts, m, f, out_h, out_w, iters)
+    est_focal, shift = ROUTER(pts, m, f, tuple(downsample_size), iters)
     return est_focal.reshape(batch_shape), shift.reshape(batch_shape)

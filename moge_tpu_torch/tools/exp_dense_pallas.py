@@ -38,7 +38,7 @@ from . import roofline
 
 __all__ = ["dense_objective_v1", "dense_objective_v1_unroll", "dense_objective_v2", "dense_objective_bf16",
            "dense_objective_bf16_plain", "dense_objective_plain", "dense_objective_serial_plain", "make_problem",
-           "pairs_bound", "measure", "sweep", "main", "LAUNCHES", "PLAINS", "REL_TOL", "SHAPES", "VARIANTS"]
+           "pairs_bound", "measure", "sweep", "main", "PLAINS", "REL_TOL", "SHAPES", "VARIANTS"]
 
 # (R, L): rows x candidate/term length of the v2 loss's solves, as the TPU probe chunks them
 SHAPES = {"global": (606, 6912), "patch_4": (2427, 1728), "patch_16": (4096, 432)}
@@ -50,7 +50,10 @@ VARIANTS = {"v1": (0, 4, (2, 4, 8)), "v1_unroll": (1, 4, (4, 8)), "v2": (2, 24, 
 # instructions per pair at the FP32 dispatch rate (csrc/exp_dense.cu); bf16: the count in its
 # SASS: HMUL2, HADD2, LOP3 and HMNMX2 per two pairs, the sums on the tensor cores
 INSTRUCTIONS = {"v1": 3.0, "v1_unroll": 3.0, "v2": 3.0, "bf16": 2.0}
-LAUNCHES = dict.fromkeys(VARIANTS, 0)  # kernel launches per variant (never by the plain versions)
+# one entry per variant (kernel exp_dense_<variant> in _build's launch count), one C function
+ENTRIES = {v: _build.Entry(f"exp_dense_{v}", "exp_dense", "moge_exp_dense", [ctypes.c_void_p] * 3
+                           + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+           for v in VARIANTS}
 EPS = 1e-7
 # a layout against its plain version (PLAINS), max |difference| over max |F|:
 # fp32 sums of the same terms in another order. T5 and its plain version add
@@ -109,15 +112,8 @@ def _dense(variant: str, A: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor, t:
     F = torch.empty_like(A)
     if F.numel() == 0:
         return F
-    lib = _build.load("exp_dense")
-    fn = lib.moge_exp_dense
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(A.device):  # launch on the tensors' card
-        rc = fn(A.data_ptr(), wx.data_ptr(), wy.data_ptr(), float(t), F.data_ptr(), R, L, code, tile,
-                _build.stream_ptr(A))
-    _build.check(lib, rc, f"dense_objective_{variant}")
-    LAUNCHES[variant] += 1
+    ENTRIES[variant](None, A.device, A.data_ptr(), wx.data_ptr(), wy.data_ptr(), float(t), F.data_ptr(), R, L,
+                     code, tile)
     return F
 
 

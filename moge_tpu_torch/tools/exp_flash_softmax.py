@@ -38,7 +38,7 @@ from ..ops import _build
 from . import roofline
 
 __all__ = ["flash_softmax_variant", "flash_softmax_variant_plain", "make_inputs", "pad_tokens", "measure", "main",
-           "LAUNCHES", "VARIANTS", "REL_TOL"]
+           "VARIANTS", "REL_TOL"]
 
 VARIANTS = ("base", "nobias", "bf16sm", "noexp", "nomax", "mxusum", "mxusum_nomax")
 HEADS, HEAD_DIM = 16, 64
@@ -50,7 +50,8 @@ HEADS, HEAD_DIM = 16, 64
 # exactly 0 on both. A 64-key tile left out moves the largest output by ~36%
 # of max |out| at N = 3601 and 1201 (make_inputs, base).
 REL_TOL = {**dict.fromkeys(VARIANTS, 2.0 ** -6), "bf16sm": 2.0 ** -5, "noexp": 0.0}
-LAUNCHES = 0  # kernel launches made by flash_softmax_variant (never by the plain version)
+T1 = _build.Entry("exp_flash_softmax", "exp_flash_softmax", "moge_flash_softmax_variant",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], variants=VARIANTS)
 
 
 def pad_tokens(n: int, quantum: int = 128) -> int:
@@ -109,7 +110,6 @@ def flash_softmax_variant(variant: str, q: torch.Tensor, k: torch.Tensor, v: tor
     fp32 (0 or -inf), all contiguous; N a multiple of 64 and n_real <= N the
     real keys. CUDA tensors run kernel T1; CPU tensors run
     ``flash_softmax_variant_plain``."""
-    global LAUNCHES
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if q.device.type == "cpu":
@@ -129,15 +129,8 @@ def flash_softmax_variant(variant: str, q: torch.Tensor, k: torch.Tensor, v: tor
         raise ValueError(f"flash_softmax_variant needs N a multiple of 64 and 0 < n_real <= N, "
                          f"got N={n_pad} n_real={n_real}")
     out = torch.empty_like(q)
-    lib = _build.load("exp_flash_softmax")
-    fn = lib.moge_flash_softmax_variant
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):  # launch on the tensors' card
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, n_pad, n_real,
-                VARIANTS.index(variant), _build.stream_ptr(q))
-    _build.check(lib, rc, "flash_softmax_variant")
-    LAUNCHES += 1
+    T1(variant, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, n_pad,
+       n_real, VARIANTS.index(variant))
     return out
 
 

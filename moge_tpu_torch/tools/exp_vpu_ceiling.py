@@ -29,8 +29,7 @@ import torch
 from ..ops import _build
 from . import roofline
 
-__all__ = ["vpu_ceiling", "vpu_ceiling_plain", "measure", "main", "LAUNCHES", "SHAPE", "ITERS", "INSTRUCTIONS",
-           "REL_TOL"]
+__all__ = ["vpu_ceiling", "vpu_ceiling_plain", "measure", "main", "SHAPE", "ITERS", "INSTRUCTIONS", "REL_TOL"]
 
 SHAPE = (256, 512)  # the resident tile of the TPU probe
 ITERS = 2000
@@ -39,7 +38,8 @@ _MAX_ITERS = 8192   # the kernel keeps the a values in shared memory
 # against the plain loop, max |difference| over max |acc|: a * x - y rounded
 # once (FMA) or twice, and 2000 fp32 sums; both kinds read 1.4e-7 to 1.1e-6
 REL_TOL = 5e-6
-LAUNCHES = 0        # kernel launches made by vpu_ceiling (never by the plain version)
+T2 = _build.Entry("exp_vpu_ceiling", "exp_vpu_ceiling", "moge_vpu_ceiling",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p], variants=tuple(INSTRUCTIONS))
 
 
 def _a(i: int) -> float:
@@ -59,8 +59,8 @@ def vpu_ceiling_plain(x: torch.Tensor, y: torch.Tensor, kind: str, iters: int = 
 def vpu_ceiling(x: torch.Tensor, y: torch.Tensor, kind: str, iters: int = ITERS, launches: int = 1) -> torch.Tensor:
     """``acc`` after ``iters`` iterations of the ``kind`` pair op over fp32
     ``x``, ``y``. CUDA tensors run kernel T2 ``launches`` times back to back
-    (each writes the same result); CPU tensors run ``vpu_ceiling_plain``."""
-    global LAUNCHES
+    (each writes the same result), each launch counted under ``kind``; CPU
+    tensors run ``vpu_ceiling_plain``."""
     if kind not in INSTRUCTIONS:
         raise ValueError(f"kind must be one of {sorted(INSTRUCTIONS)}, got {kind!r}")
     if x.device.type == "cpu":
@@ -73,15 +73,9 @@ def vpu_ceiling(x: torch.Tensor, y: torch.Tensor, kind: str, iters: int = ITERS,
     if not 0 <= iters <= _MAX_ITERS or launches < 1 or x.numel() == 0:
         raise ValueError(f"vpu_ceiling needs 0 <= iters <= {_MAX_ITERS}, launches >= 1 and a nonempty tile")
     out = torch.empty_like(x)
-    lib = _build.load("exp_vpu_ceiling")
-    fn = lib.moge_vpu_ceiling
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):  # launch on the tensors' card
-        rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), iters, list(INSTRUCTIONS).index(kind),
-                launches, _build.stream_ptr(x))
-    _build.check(lib, rc, "vpu_ceiling")
-    LAUNCHES += launches
+    T2(kind, x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), iters, list(INSTRUCTIONS).index(kind),
+       launches)
+    _build.count(T2.kernel, kind, launches - 1)  # the entry counted one C call, which made ``launches``
     return out
 
 

@@ -367,9 +367,7 @@ def test_dense_objective_entry_is_typed_once(monkeypatch):
     loads = []
     lib = type("Lib", (), {"moge_dense_objective": Entry()})()
     monkeypatch.setattr(alignment._build, "load", lambda name: loads.append(name) or lib)
-    alignment._kernel.cache_clear()
-    try:
-        assert alignment._kernel() == alignment._kernel() == (lib, lib.moge_dense_objective)
-        assert loads == ["dense_align"] and len(lib.moge_dense_objective.argtypes) == 9
-    finally:
-        alignment._kernel.cache_clear()
+    monkeypatch.setattr(alignment.K4, "_fn", None)
+    monkeypatch.setattr(alignment.K4, "_lib", None)
+    assert alignment.K4.function() is alignment.K4.function() is lib.moge_dense_objective
+    assert loads == ["dense_align"] and len(lib.moge_dense_objective.argtypes) == 9

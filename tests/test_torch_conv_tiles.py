@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 
 from moge_tpu_torch.models.multihead import FOLD_PAD
-from moge_tpu_torch.ops import conv
+from moge_tpu_torch.ops import _build, conv
 
 SOURCE = Path(conv.__file__).resolve().parent.parent / "csrc" / "conv3x3.cu"
 SMS = 132  # an H100 SXM's streaming multiprocessors
@@ -119,7 +119,7 @@ def test_wide_tile_needs_four_blocks_per_sm_of_the_card(sms, bm):
 def test_cpu_tensors_count_no_launch():
     import torch
 
-    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES, dict(conv.VARIANT_LAUNCHES))
+    before = _build.read_launches()
     x = torch.randn(1, 5, 6, 8, dtype=torch.bfloat16)
     conv.conv3x3_replicate(x, torch.randn(3, 3, 8, 4, dtype=torch.bfloat16), torch.zeros(4))
-    assert (conv.LAUNCHES, conv.GROUPED_LAUNCHES, dict(conv.VARIANT_LAUNCHES)) == before
+    assert _build.read_launches() == before

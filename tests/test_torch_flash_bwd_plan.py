@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from moge_tpu_torch.ops import attention
+from moge_tpu_torch.ops import _build, attention
 
 SOURCE = Path(attention.__file__).resolve().parent.parent / "csrc" / "flash_attn_bwd.cu"
 SMEM_PER_BLOCK = 232_448  # an H100's most dynamic shared memory for one block
@@ -115,8 +115,8 @@ def test_plan_refuses_an_output_it_cannot_store_in_pairs():
 
 
 def test_cpu_tensors_count_no_launch():
-    before = (attention.DQ_LAUNCHES, attention.DKV_LAUNCHES, dict(attention.BWD_VARIANT_LAUNCHES))
+    before = _build.read_launches()
     q, k, v = _qkv(1, 5, 2, device="cpu")
     out, lse = attention.flash_attention_fwd(q, k, v)
     attention.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
-    assert (attention.DQ_LAUNCHES, attention.DKV_LAUNCHES, dict(attention.BWD_VARIANT_LAUNCHES)) == before
+    assert _build.read_launches() == before

@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from moge_tpu_torch.ops import attention
+from moge_tpu_torch.ops import _build, attention
 
 SOURCE = Path(attention.__file__).resolve().parent.parent / "csrc" / "flash_fwd.cuh"
 F32_SOURCE = SOURCE.with_name("flash_attn.cu")
@@ -88,10 +88,10 @@ def test_plan_refuses_strides_that_are_not_16_byte_multiples():
 
 
 def test_cpu_tensors_count_no_launch():
-    before = (attention.LAUNCHES, dict(attention.VARIANT_LAUNCHES))
+    before = _build.read_launches()
     q = torch.randn(1, 5, 2, 64, dtype=BF16)
     attention.flash_attention_fwd(q, q, q)
-    assert (attention.LAUNCHES, dict(attention.VARIANT_LAUNCHES)) == before
+    assert _build.read_launches() == before
 
 
 # (B, H, Nq, the build f32_plan takes) on a 132-SM H100: MoGe-1's folder image (2500 tokens), eval

@@ -16,11 +16,13 @@ nvcc (the kernels have no CPU mode); skipped elsewhere. On a GPU host:
 not have. This file imports no JAX.)
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
-from moge_tpu_torch.ops import alignment, attention, bitonic, conv, norm, solvers
+from moge_tpu_torch.ops import _build, alignment, attention, bitonic, conv, norm, solvers
 from torch_tiny_config import TINY_CONFIG, camera_point_maps
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +50,24 @@ def dev():
     return torch.device("cuda:0")
 
 
+def _counts() -> Counter:
+    """A copy of the launch registry, (kernel, variant) -> launches."""
+    return Counter(_build.LAUNCHES)
+
+
+def _moved(before: Counter) -> dict:
+    """The launches counted since ``before``, by (kernel, variant)."""
+    return dict(Counter(_build.LAUNCHES) - before)
+
+
+def _by_kernel(before: Counter) -> Counter:
+    """The launches counted since ``before``, by kernel (summed over its variants)."""
+    moved = Counter()
+    for (kernel, _), n in (Counter(_build.LAUNCHES) - before).items():
+        moved[kernel] += n
+    return moved
+
+
 def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
@@ -56,9 +76,9 @@ def _check_layer_norm(x, s, b, variant, slack=0.0):
     """K1 against its plain version, the launch counted under ``variant``:
     fp32 to FP32_TOL; bf16 within one bf16 ulp of the plain version's fp32
     result (one rounding), plus ``slack`` absolute."""
-    before = dict(norm.VARIANT_LAUNCHES)
+    before = _counts()
     got = norm.layer_norm_fp32(x, s, b).float()
-    assert {k: n - before[k] for k, n in norm.VARIANT_LAUNCHES.items()} == {k: int(k == variant) for k in before}
+    assert _moved(before) == {("layer_norm", variant): 1}
     want = norm.layer_norm_plain(x.float(), s, b)
     if x.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
@@ -136,11 +156,10 @@ def test_flash_attention(dev, dtype, b, nq, nkv, h, kv_valid):
     qkv = torch.randn(b, nkv, 3, h, 64, device=dev, generator=g).to(dtype)
     q = (torch.randn(b, nq, h, 64, device=dev, generator=g) * 2).to(dtype)
     k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, as the encoder passes them
-    before = dict(attention.VARIANT_LAUNCHES)
+    before = _counts()
     out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
     variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
-    assert {k_: n - before[k_] for k_, n in attention.VARIANT_LAUNCHES.items()} == \
-        {k_: int(k_ == variant) for k_ in before}
+    assert _moved(before) == {("flash_attention", variant): 1}
     want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), kv_valid, return_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
     if dtype == torch.float32:
@@ -159,9 +178,9 @@ def _f32_build(monkeypatch, per_sm):
 def _check_f32(q, k, v, kv_valid):
     """fp32 K2 (one launch, counted under fp32) against the plain version: out and lse at
     test_flash_attention's tolerances."""
-    before = dict(attention.VARIANT_LAUNCHES)
+    before = _counts()
     out, lse = attention.flash_attention_fwd(q, k, v, kv_valid)
-    assert {k_: n - before[k_] for k_, n in attention.VARIANT_LAUNCHES.items()} == {"wgmma": 0, "fp32": 1}
+    assert _moved(before) == {("flash_attention", "fp32"): 1}
     want, want_lse = attention.attention_plain(q, k, v, kv_valid, return_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
     torch.testing.assert_close(out, want, rtol=FP32_TOL, atol=FP32_TOL)
@@ -218,9 +237,9 @@ def test_flash_attention_fp32_backward_reads_either_builds_lse(dev, monkeypatch,
     qkv = torch.randn(b, n, 3, h, 64, device=dev, generator=g).requires_grad_()
     dout = torch.randn(b, n, h, 64, device=dev, generator=g)
     _f32_build(monkeypatch, per_sm)
-    before = dict(attention.VARIANT_LAUNCHES)
+    before = _counts()
     (got,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
-    assert attention.VARIANT_LAUNCHES["fp32"] == before["fp32"] + 1
+    assert _moved(before).get(("flash_attention", "fp32")) == 1
     ref = qkv.detach().requires_grad_()
     (want,) = torch.autograd.grad(attention.attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], kv_valid),
                                   ref, dout)
@@ -260,9 +279,9 @@ def test_conv3x3_grouped(dev, dtype, shape, relu, use_res):
     k = (torch.randn(g, 3, 3, c, o, device=dev, generator=gen) * (9 * c) ** -0.5).to(dtype)
     bias = torch.randn(g, o, device=dev, generator=gen)
     res = torch.randn(g * b0, h, w, o, device=dev, generator=gen).to(dtype) if use_res else None
-    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES)
+    before = _counts()
     got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
-    assert (conv.LAUNCHES - before[0], conv.GROUPED_LAUNCHES - before[1]) == (0, 1)
+    assert _by_kernel(before) == {"conv3x3_grouped": 1}
     want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL * want.abs().max().item())
@@ -278,7 +297,12 @@ def _check_conv(got, want, dtype):
 
 
 def _variant_deltas(before):
-    return {k: v - before[k] for k, v in conv.VARIANT_LAUNCHES.items() if v != before[k]}
+    """K3 and K3-grouped launches since ``before``, by variant."""
+    deltas = Counter()
+    for (kernel, variant), n in _moved(before).items():
+        if kernel in ("conv3x3", "conv3x3_grouped"):
+            deltas[variant] += n
+    return dict(deltas)
 
 
 # K3 at the main path's shapes (moge-2-vitl-normal, 1369 tokens, batch 1):
@@ -305,7 +329,7 @@ def test_conv3x3_main_path_shapes(dev, dtype, h, c, o, relu, use_res, up2):
         k, bias = conv.up2_conv3_expanded(k, bias, dtype)
     k = k.to(dtype).contiguous()
     res = torch.randn(1, h, h, o, device=dev, generator=g).to(dtype) if use_res else None
-    before = dict(conv.VARIANT_LAUNCHES)
+    before = _counts()
     got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
     want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
     _check_conv(got, want, dtype)
@@ -328,12 +352,12 @@ def test_conv3x3_grouped_main_path_shapes(dev, dtype, b0, h, c, o, relu, use_res
         k, bias = conv.up2_conv3_expanded(k, bias, dtype)
     k = k.to(dtype).contiguous()
     res = torch.randn(3 * b0, h, h, o, device=dev, generator=gen).to(dtype) if use_res else None
-    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES, dict(conv.VARIANT_LAUNCHES))
+    before = _counts()
     got = conv.conv3x3_replicate(x, k, bias, res, relu).float()
-    assert (conv.LAUNCHES - before[0], conv.GROUPED_LAUNCHES - before[1]) == (0, 1)
+    assert _by_kernel(before) == {"conv3x3_grouped": 1}
     want = conv.conv3x3_plain(x.float(), k.float(), bias, None if res is None else res.float(), relu)
     _check_conv(got, want, dtype)
-    assert next(iter(_variant_deltas(before[2]))) in (("fp32",) if dtype == torch.float32 else conv.PIPELINED)
+    assert next(iter(_variant_deltas(before))) in (("fp32",) if dtype == torch.float32 else conv.PIPELINED)
 
 
 @pytest.mark.parametrize("c,o,offset,dtype,variant", [
@@ -349,7 +373,7 @@ def test_conv3x3_variants(dev, c, o, offset, dtype, variant):
     k = (torch.randn(3, 3, c, o, device=dev, generator=g) * (9 * c) ** -0.5).to(dtype)
     bias = torch.randn(o, device=dev, generator=g)
     res = torch.randn(2, 9, 13, o, device=dev, generator=g).to(dtype)
-    before = dict(conv.VARIANT_LAUNCHES)
+    before = _counts()
     got = conv.conv3x3_replicate(x, k, bias, res, True).float()
     assert _variant_deltas(before) == {variant: 1}
     _check_conv(got, conv.conv3x3_plain(x.float(), k.float(), bias, res.float(), True), dtype)
@@ -401,13 +425,14 @@ def test_tiny_decode_on_card_matches_cpu(dev, dtype, rtol):
     cpu = MoGeModel(TINY_CONFIG, "cpu", torch.float32)
     cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
     image = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 56, 112, 3)).astype(np.float32))
-    launches = (norm.LAUNCHES, attention.LAUNCHES, conv.LAUNCHES)
+    before = _counts()
     with torch.inference_mode():
         got = gpu.module.decode(image.to(dev), 4, 8, 2.0, dtype)
         want = cpu.module.decode(image, 4, 8, 2.0, torch.float32)
     # per forward: 2 LayerNorms per block + 1 per taken layer; 1 attention per
     # block; per ConvStack 2 convs per res block + 1 per resampler (4 stacks)
-    counts = (norm.LAUNCHES - launches[0], attention.LAUNCHES - launches[1], conv.LAUNCHES - launches[2])
+    moved = _by_kernel(before)
+    counts = (moved["layer_norm"], moved["flash_attention"], moved["conv3x3"])
     assert counts == (2 * 4 + 4, 4, 4 * (2 * 3 + 4))
     for key in want:
         a, b = got[key].float().cpu(), want[key]
@@ -424,12 +449,13 @@ def test_tiny_batched_heads_decode_on_card_matches_cpu(dev, dtype, rtol):
     cpu = MoGeModel(TINY_CONFIG, "cpu", torch.float32, batched_heads=False)
     cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()}, strict=True)
     image = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (2, 56, 112, 3)).astype(np.float32))
-    before = (conv.LAUNCHES, conv.GROUPED_LAUNCHES)
+    before = _counts()
     with torch.inference_mode():
         got = gpu.module.decode(image.to(dev), 4, 8, 2.0, dtype)
         want = cpu.module.decode(image, 4, 8, 2.0, torch.float32)
     # neck: 2 convs per res block + 1 per resampler; heads: the same per head, grouped
-    assert (conv.LAUNCHES - before[0], conv.GROUPED_LAUNCHES - before[1]) == (2 * 3 + 4, 2 * 3 + 4)
+    moved = _by_kernel(before)
+    assert (moved["conv3x3"], moved["conv3x3_grouped"]) == (2 * 3 + 4, 2 * 3 + 4)
     for key in want:
         a, b = got[key].float().cpu(), want[key]
         assert ((a - b).norm() / b.norm()).item() <= rtol, key
@@ -473,13 +499,12 @@ def test_flash_attention_backward(dev, dtype, b, n, h, kv_valid):
     g = _gen(dev, 7 * n + h)
     qkv = torch.randn(b, n, 3, h, 64, device=dev, generator=g).to(dtype).requires_grad_()
     dout = torch.randn(b, n, h, 64, device=dev, generator=g).to(dtype)
-    launches = (attention.DQ_LAUNCHES, attention.DKV_LAUNCHES)
-    variants = dict(attention.BWD_VARIANT_LAUNCHES)
+    before = _counts()
     (got,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
-    assert (attention.DQ_LAUNCHES - launches[0], attention.DKV_LAUNCHES - launches[1]) == (1, 1)
+    moved = _moved(before)
     variant = "wgmma" if dtype == torch.bfloat16 else "fp32"
-    assert {k_: c - variants[k_] for k_, c in attention.BWD_VARIANT_LAUNCHES.items()} == \
-        {k_: 2 * (k_ == variant) for k_ in variants}
+    assert {key: n for key, n in moved.items() if key[0] != "flash_attention"} == \
+        {("flash_attention_dq", variant): 1, ("flash_attention_dkv", variant): 1}
     (again,) = torch.autograd.grad(attention.flash_attention_qkv(qkv, kv_valid), qkv, dout)
     assert torch.equal(got, again)
     ref = qkv.detach().float().requires_grad_()
@@ -521,9 +546,9 @@ def test_dense_objective(dev, r, length, per_term):
     g = _gen(dev, r * length)
     A, wx, wy = torch.randn(3, r, length, device=dev, generator=g).unbind(0)
     t = torch.rand(r, length, device=dev, generator=g) + 0.5 if per_term else 1.0
-    before = alignment.LAUNCHES
+    before = _counts()
     got = alignment.dense_objective(A, wx, wy, t)
-    assert alignment.LAUNCHES == before + 1
+    assert _moved(before) == {("dense_align", None): 1}
     want = alignment.dense_objective_plain(A, wx, wy, t)
     assert _rel(got, want) <= K4_REL
     # the kernel's argmin attains the plain minimum (near-ties may pick another candidate)
@@ -548,9 +573,9 @@ def test_sorted_align_forms_on_card_match_cpu(dev, monkeypatch, impl, per_term):
     x[:, ::8] = -np.abs(x[:, ::8])
     x, y, w = map(torch.from_numpy, (x, y, w))
     t = torch.from_numpy(rng.uniform(0.2, 2.0, x.shape).astype(np.float32)) if per_term else 1.0
-    before = alignment.LAUNCHES
+    before = _counts()
     got = alignment.align(x.to(dev), y.to(dev), w.to(dev), t.to(dev) if per_term else t)
-    assert alignment.LAUNCHES == before
+    assert _by_kernel(before)["dense_align"] == 0
     want = alignment.align(x, y, w, t)
     assert torch.equal(got[2].cpu(), want[2])
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=FP32_TOL, atol=0.0)
@@ -618,9 +643,9 @@ def test_flash_softmax_variant(dev, variant, n, n_pad, bh):
 
     q, k, v, v_ext, bias = fs.make_inputs(n, dev, bh, n_pad, seed=n)
     vin = v_ext if variant.startswith("mxusum") else v
-    before = fs.LAUNCHES
+    before = _counts()
     got = fs.flash_softmax_variant(variant, q, k, vin, bias, n).float()
-    assert fs.LAUNCHES == before + 1
+    assert _moved(before) == {("exp_flash_softmax", variant): 1}
     want = fs.flash_softmax_variant_plain(variant, q, k, vin, bias, n).float()
     if variant == "noexp":
         assert not got.any() and not want.any()
@@ -633,9 +658,9 @@ def test_vpu_ceiling(dev, kind, shape, iters):
     from moge_tpu_torch.tools import exp_vpu_ceiling as vpu
 
     x, y = vpu.inputs(dev, shape)
-    before = vpu.LAUNCHES
+    before = _counts()
     got = vpu.vpu_ceiling(x, y, kind, iters, launches=3)
-    assert vpu.LAUNCHES == before + 3
+    assert _moved(before) == {("exp_vpu_ceiling", kind): 3}
     want = vpu.vpu_ceiling_plain(x, y, kind, iters)
     assert (got - want).abs().max().item() <= vpu.REL_TOL * want.abs().max().item()
 
@@ -648,9 +673,9 @@ def test_dense_layouts(dev, variant, r, length):
     _, _, _, A, wx, wy = dense.make_problem(r, length, dev, seed=length)
     want = dense.PLAINS[variant](A, wx, wy, 0.7)
     for tile in dense.VARIANTS[variant][2]:
-        before = dense.LAUNCHES[variant]
+        before = _counts()
         got = dense.FUNCTIONS[variant](A, wx, wy, 0.7, tile)
-        assert dense.LAUNCHES[variant] == before + 1
+        assert _moved(before) == {(f"exp_dense_{variant}", None): 1}
         # relative to max |F|, or to max |wy| where a candidate's own term cancels (L = 1)
         scale = max(want.abs().max().item(), wy.abs().max().item())
         assert (got - want).abs().max().item() <= dense.REL_TOL * scale, tile
@@ -681,17 +706,6 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
         dense.dense_objective_v2(A, wx, wy, 1.0, tile=16)
 
 
-def _counts():
-    return {"K1": norm.LAUNCHES, "K2": attention.LAUNCHES, "K3": conv.LAUNCHES, "K3g": conv.GROUPED_LAUNCHES,
-            **{f"K1 {k}": n for k, n in norm.VARIANT_LAUNCHES.items()},
-            **{f"K2 {k}": n for k, n in attention.VARIANT_LAUNCHES.items()},
-            **{f"K3 {k}": n for k, n in conv.VARIANT_LAUNCHES.items()}}
-
-
-def _moved(before):
-    return {k: n - before[k] for k, n in _counts().items() if n != before[k]}
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ops_launch_the_kernels(dev, dtype):
     """The dispatcher ops' CUDA implementations (the route of a traced
@@ -705,7 +719,7 @@ def test_ops_launch_the_kernels(dev, dtype):
     for call in (lambda: torch.ops.moge.layer_norm(x, s, b, 1e-6), lambda: norm.layer_norm_fp32(x, s, b)):
         before = _counts()
         got = call()
-        assert _moved(before) == {"K1": 1, "K1 vec16": 1}
+        assert _moved(before) == {("layer_norm", "vec16"): 1}
     assert torch.equal(got, torch.ops.moge.layer_norm(x, s, b, 1e-6))
     want = norm.layer_norm_plain(x.float(), s, b)
     tol = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7) + FP32_TOL if bf16 else FP32_TOL
@@ -713,17 +727,17 @@ def test_ops_launch_the_kernels(dev, dtype):
 
     qkv = torch.randn(1, 1370, 3, 16, 64, device=dev, generator=g).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    variant = "K2 wgmma" if bf16 else "K2 fp32"
+    variant = "wgmma" if bf16 else "fp32"
     for call in (lambda: torch.ops.moge.flash_attention(q, k, v, 1300),
                  lambda: attention.flash_attention_fwd(q, k, v, 1300)):
         before = _counts()
         out, lse = call()
-        assert _moved(before) == {"K2": 1, variant: 1}
+        assert _moved(before) == {("flash_attention", variant): 1}
     want, want_lse = attention.attention_plain(q.float(), k.float(), v.float(), 1300, return_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=1e-4)
     assert (out.float() - want).abs().max().item() <= (K2_BF16_ABS if bf16 else 10 * FP32_TOL)
 
-    for lead, counter in (((), "K3"), ((3,), "K3g")):
+    for lead, kernel in (((), "conv3x3"), ((3,), "conv3x3_grouped")):
         xc = torch.randn(3, 74, 74, 64, device=dev, generator=g).to(dtype)
         kc = (torch.randn(*lead, 3, 3, 64, 64, device=dev, generator=g) * 24 ** -1).to(dtype)
         bc = torch.randn(*lead, 64, device=dev, generator=g)
@@ -732,9 +746,8 @@ def test_ops_launch_the_kernels(dev, dtype):
                      lambda: conv.conv3x3_replicate(xc, kc, bc, rc, True)):
             before = _counts()
             got = call()
-            moved = _moved(before)
-            assert moved.pop(counter) == 1 and list(moved.values()) == [1]
-            assert next(iter(moved)) in ([f"K3 {v}" for v in conv.PIPELINED] if bf16 else ["K3 fp32"])
+            ((took, variant), n), = _moved(before).items()
+            assert (took, n) == (kernel, 1) and variant in (conv.PIPELINED if bf16 else ("fp32",))
         _check_conv(got.float(), conv.conv3x3_plain(xc.float(), kc.float(), bc, rc.float(), True), dtype)
 
 
@@ -780,9 +793,9 @@ def test_raw_forward_export_on_card_matches_cpu_export(dev):
         program = load_program(export_program(gpu, 224, 280, 320, use_fp16=fp16))
         before = _counts()
         got = program(image.to(dev))
-        moved = _moved(before)
-        assert (moved["K1"], moved["K2"], moved["K3"]) == (expect["layer_norm"], expect["flash_attention"],
-                                                          expect["conv3x3"])
+        moved = _by_kernel(before)
+        assert (moved["layer_norm"], moved["flash_attention"], moved["conv3x3"]) == \
+            (expect["layer_norm"], expect["flash_attention"], expect["conv3x3"])
         assert set(got) == set(want)
         for key in want:
             a, b = got[key].float().cpu(), want[key]
@@ -808,9 +821,9 @@ def test_camera_solve(dev, b, h, w, use_mask, known_focal):
     version on the card; a known focal is the camera's own."""
     points, mask, focal = _camera_case(dev, b, h, w, b + h + 2 * use_mask, use_mask)
     focal = focal if known_focal else None
-    before = solvers.LAUNCHES
+    before = _counts()
     got = solvers.recover_focal_shift(points, mask, focal)
-    assert solvers.LAUNCHES == before + 1
+    assert _moved(before) == {("camera_solve", None): 1}
     want = solvers._recover_plain(points, mask, focal, (64, 64), 30)
     torch.cuda.synchronize()
     assert [(t.shape, t.dtype) for t in got] == [((b,), torch.float32)] * 2
@@ -832,9 +845,9 @@ def test_camera_solve_past_the_registers(dev, known_focal):
     registers): the samples gathered again in every pass."""
     points, mask, focal = _camera_case(dev, 8, 480, 640, 9, True)
     focal = focal if known_focal else None
-    before = solvers.LAUNCHES
+    before = _counts()
     got = solvers.recover_focal_shift(points, mask, focal, downsample_size=(96, 96))
-    assert solvers.LAUNCHES == before + 1
+    assert _moved(before) == {("camera_solve", None): 1}
     want = solvers._recover_plain(points, mask, focal, (96, 96), 30)
     z_mean = points[..., 2].abs().mean((1, 2))
     assert (got[0] / want[0] - 1).abs().max().item() <= SOLVE_REL

@@ -17,7 +17,7 @@ from moge_tpu.models.v2 import MoGeModel as JaxMoGeModel
 from moge_tpu_torch.models import multihead
 from moge_tpu_torch.models.multihead import heads_batchable
 from moge_tpu_torch.models.v2 import MoGeV2
-from moge_tpu_torch.ops import conv
+from moge_tpu_torch.ops import _build, conv
 from torch_tiny_config import TINY_CONFIG, state_dict_from_jax_params
 
 torch.set_num_threads(1)
@@ -62,12 +62,12 @@ def test_batched_heads_match_sequential_and_jax(models, monkeypatch):
     image = _image(1)
     monkeypatch.setenv("MOGE_BATCHED_HEADS", "1")
     want = jm.module.apply({"params": jm.params}, jnp.asarray(image), NUM_TOKENS)
-    grouped = conv.GROUPED_LAUNCHES
+    before = _build.read_launches()
     with torch.inference_mode():
         got_bat = bat(torch.from_numpy(image), NUM_TOKENS, torch.float32)
         got_seq = seq(torch.from_numpy(image), NUM_TOKENS, torch.float32)
         again = bat(torch.from_numpy(image), NUM_TOKENS, torch.float32)  # cached stacked weights
-    assert conv.GROUPED_LAUNCHES == grouped  # CPU tensors: the plain version, no launch
+    assert _build.read_launches() == before  # CPU tensors: the plain version, no launch
     assert set(got_bat) == set(got_seq) == set(want)
     for key in want:
         w = np.asarray(want[key], np.float32)

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from moge_tpu_torch.ops import _build
 from moge_tpu_torch.tools import exp_dense_pallas as dense
 from moge_tpu_torch.tools import exp_flash_softmax as fs
 from moge_tpu_torch.tools import exp_vpu_ceiling as vpu
@@ -92,12 +93,12 @@ def test_flash_softmax_tolerance_catches_a_dropped_key_tile(variant):
 
 def test_flash_softmax_wrapper_runs_the_plain_version_on_cpu():
     q, k, v, v_ext, bias = fs.make_inputs(100, "cpu", 1, 128)
-    before = fs.LAUNCHES
+    before = _build.read_launches()
     for variant in fs.VARIANTS:
         vin = v_ext if variant.startswith("mxusum") else v
         got = fs.flash_softmax_variant(variant, q, k, vin, bias, 100)
         assert torch.equal(got, fs.flash_softmax_variant_plain(variant, q, k, vin, bias, 100))
-    assert fs.LAUNCHES == before
+    assert _build.read_launches() == before
     with pytest.raises(ValueError):
         fs.flash_softmax_variant("softmax", q, k, v, bias, 100)
 
@@ -116,10 +117,10 @@ def test_dense_plain_matches_pallas(tpu_dense, variant, r, length):
 
 def test_dense_wrappers_run_the_plain_versions_on_cpu():
     _, _, _, A, wx, wy = dense.make_problem(3, 50, "cpu")
-    before = dict(dense.LAUNCHES)
+    before = _build.read_launches()
     for variant, fn in dense.FUNCTIONS.items():
         assert torch.equal(fn(A, wx, wy, 1.0), dense.PLAINS[variant](A, wx, wy, 1.0))
-    assert dense.LAUNCHES == before
+    assert _build.read_launches() == before
 
 
 @pytest.mark.parametrize("r,length,t", [(3, 50, 0.7), (2, 257, 1.0), (1, 1, 0.7)])
@@ -177,9 +178,9 @@ def test_vpu_ceiling_plain_matches_the_tools_kernel(monkeypatch):
 
 def test_vpu_ceiling_wrapper_on_cpu():
     x, y = vpu.inputs("cpu", (3, 5))
-    before = vpu.LAUNCHES
+    before = _build.read_launches()
     assert torch.equal(vpu.vpu_ceiling(x, y, "align", 9), vpu.vpu_ceiling_plain(x, y, "align", 9))
-    assert vpu.LAUNCHES == before
+    assert _build.read_launches() == before
     with pytest.raises(ValueError):
         vpu.vpu_ceiling(x, y, "fmax")
 

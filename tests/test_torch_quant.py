@@ -22,7 +22,7 @@ from moge_tpu.ops.quant import quant_matmul as jax_quant_matmul
 from moge_tpu_torch.models.dinov2 import VIT_ARCHS, DinoVisionTransformer, Linear
 from moge_tpu_torch.models.modules import init_params
 from moge_tpu_torch.models.v2 import MoGeModel
-from moge_tpu_torch.ops import quant
+from moge_tpu_torch.ops import _build
 from moge_tpu_torch.ops.quant import QuantLinear, int8_product, quant_matmul, quantize
 from torch_tiny_config import TINY_CONFIG, make_points_perspective, state_dict_from_jax_params
 
@@ -101,7 +101,7 @@ def test_quant_matmul_matches_jax(monkeypatch, with_bias):
     got = quant_matmul(xt, wt, None if bias is None else torch.from_numpy(bias))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=OUT_RTOL, atol=0)
-    assert quant.LAUNCHES == 0  # the plain product on CPU tensors
+    assert _build.read_launches()["int8_product"] == {None: 0}  # the plain product on CPU tensors
 
 
 def test_quant_linear_has_linears_parameters():
