@@ -234,6 +234,10 @@ K2_LSE_ABS = 1e-3  # fp32 logsumexp of the same bf16 products, summed in another
 # tests/test_torch_kernels_cuda.py holds it
 K2_F32_TOL = 1e-5
 K2_F32_LSE_ABS = 1e-4
+# the fp32 K3 against its fp32 plain version: summation order only (|got -
+# want| <= tol (max |want| + |want|)), as tests/test_torch_kernels_cuda.py holds it
+K3_F32_TOL = 1e-5
+FOLDER_HW, FOLDER_TOKENS = (480, 640), 2500  # MoGe-1's folder image: the benchmark's folder cell
 K3_REL = 1e-2
 # K2b vs autograd through the plain version in fp32, relative to the largest
 # gradient: bf16 rounds P and dS before their products (as on the TPU); fp32
@@ -646,6 +650,7 @@ def phase_kernels():
 
     results["conv3x3"] = conv_cases(gen)
     results["conv3x3_grouped"] = grouped_cases(gen)
+    results["conv3x3"] += fp32_conv_cases(gen)
     torch.cuda.synchronize()
     return results
 
@@ -707,6 +712,80 @@ def fp32_attention_cases(gen, paths: dict) -> list:
     return cases
 
 
+def fp32_conv_cases(gen) -> list:
+    """The fp32 K3 (the register-blocked FFMA implicit GEMM of MoGe-1's and
+    every fp32 ``infer``) against its plain version in fp32 (cuDNN, TF32
+    off) at every distinct conv shape of MoGe-1's folder image (moge-vitl,
+    FOLDER_HW at FOLDER_TOKENS, ``k3_shapes_v1``), then the heads' conv with
+    a ReLU in (the error alone): each launch counted under ``fp32`` with the
+    tile ``_f32_tile`` took, held to K3_F32_TOL; each timed shape by CUDA
+    events and device time (one trace of 10 calls) beside F.conv2d in fp32
+    by CUDA events and the FP32 bound, with the share of that bound; then
+    the forward's 17 convs summed. F.conv2d is not traced: cuDNN's fp32
+    channels-last call at 172x228 256 -> 128 takes ~0.2 s, its trace ~90 s,
+    and the traces after it on the card came back short or empty. The plain
+    version is not timed: it is F.conv2d behind a pad."""
+    import torch
+
+    from moge_tpu_torch.models.presets import get_preset
+    from moge_tpu_torch.ops import _build, conv
+    from moge_tpu_torch.tools.roofline import device_ms
+
+    dev = torch.device(DEVICE)
+    config = get_preset("moge-vitl")["config"]
+    patch, resized = v1_grid(FOLDER_TOKENS, *FOLDER_HW)
+    shapes = k3_shapes_v1(config, patch, resized)
+    heads = [s for s in shapes if s[:2] == resized]
+    shapes += [(h, w, c, o, True, res, up2, 0) for h, w, c, o, _, res, up2, _ in heads]
+    cases, per_forward = [], [0, 0.0, 0.0, 0.0, 0.0]
+    for h, w, c, o, relu, use_res, _, n in shapes:
+        started = time.perf_counter()
+        x = torch.randn(1, h, w, c, generator=gen, device=dev)
+        kern = torch.randn(3, 3, c, o, generator=gen, device=dev) * (9 * c) ** -0.5
+        bias = torch.randn(o, generator=gen, device=dev) * 0.1
+        res = torch.randn(1, h, w, o, generator=gen, device=dev) if use_res else None
+        before = read_variants("conv3x3")
+        got = conv.conv3x3_replicate(x, kern, bias, res, relu)
+        moved = {k: v - before[k] for k, v in read_variants("conv3x3").items() if v != before[k]}
+        want = conv.conv3x3_plain(x, kern, bias, res, relu)
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - K3_F32_TOL * (want.abs().max() + want.abs())).max().item()
+        tile = conv._f32_tile(1, 1, h, w, c, o, _build.sm_count(dev))
+        label = f"{h}x{w} {c}->{o} relu={relu} residual={use_res}"
+        line = f"[K3 fp32] {label} ({moved}, {tile}): max_abs_err {err:.3e} (tol {K3_F32_TOL} x (max |want| + |want|))"
+        del got, want
+        case = (err, None, None, None, None)
+        if n:
+            def kernel():
+                return conv.conv3x3_replicate(x, kern, bias, res, relu)
+
+            ms, lib_ms = cuda_ms(kernel, 10), cuda_ms(library_conv(x, kern, bias), 10)
+            dev_ms = {"device_ms": device_ms(kernel, 10, windows=1)}
+            bnd = conv_bound(x, kern, res)
+            line += (f", kernel {ms:.4f} ms by events / {dev_ms['device_ms']:.4f} by device time, F.conv2d fp32 "
+                     f"{lib_ms:.4f} by events; bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms * 100:.1f}% of it by "
+                     f"events, {bnd[0] / dev_ms['device_ms'] * 100:.1f}% by device time; {n} a forward")
+            case = (err, ms, None, lib_ms, bnd, dev_ms)
+            for i, add in enumerate((n, n * ms, n * dev_ms["device_ms"], n * lib_ms, n * bnd[0])):
+                per_forward[i] += add
+        log(f"{line} ({time.perf_counter() - started:.1f} s)")
+        if moved != {"fp32": 1}:
+            raise AssertionError(f"fp32 K3 at {label} launched {moved}, not one tiled fp32 kernel")
+        if not excess <= 0:
+            raise AssertionError(f"fp32 K3 disagrees at {label}: excess {excess}")
+        cases.append(case)
+        del x, kern, bias, res
+        torch.cuda.empty_cache()
+    want_n = expected_v1_launches(config)["conv3x3"]
+    if per_forward[0] != want_n:
+        raise AssertionError(f"folder: the K3 shapes list {per_forward[0]} launches per forward, moge-vitl implies {want_n}")
+    n, k_ms, k_dev, l_ms, b_ms = per_forward
+    log(f"[K3 fp32 per forward] folder {FOLDER_HW[0]}x{FOLDER_HW[1]} at {FOLDER_TOKENS} tokens: {n} launches, kernel "
+        f"{k_ms:.4f} ms by events / {k_dev:.4f} by device time, F.conv2d fp32 {l_ms:.4f} by events; bound "
+        f"{b_ms:.4f} ms, {b_ms / k_ms * 100:.1f}% of it by events, {b_ms / k_dev * 100:.1f}% by device time")
+    return cases
+
+
 def path_grids() -> dict:
     """path -> (batch, (base_h, base_w) token grid) of the moge-2-vitl-normal
     forward of each inference path this script counts: the main path (518^2
@@ -752,14 +831,17 @@ def v1_path_grids() -> dict:
     aspect_ratio_range), at its batch. ``MoGeV1.forward``'s arithmetic: the
     image resized to the token budget, its patch grid, and the size the
     head's output blocks run at."""
-    def grid(num_tokens, img_h, img_w):
-        factor = ((num_tokens * 14 ** 2) / (img_h * img_w)) ** 0.5
-        resized_h, resized_w = int(img_h * factor), int(img_w * factor)
-        return (resized_h // 14, resized_w // 14), (resized_h, resized_w)
-
     lo = json.loads(TRAIN_V1_CONFIG.read_text())["model"]["num_tokens_range"][0]
-    return {"moge1_infer": (1, *grid(1369, 518, 518)), "train_v1 2:1": (TRAIN_CLI_BATCH, *grid(lo, 512, 1024)),
-            "train_v1 1:2": (TRAIN_CLI_BATCH, *grid(lo, 1024, 512))}
+    return {"moge1_infer": (1, *v1_grid(1369, 518, 518)), "train_v1 2:1": (TRAIN_CLI_BATCH, *v1_grid(lo, 512, 1024)),
+            "train_v1 1:2": (TRAIN_CLI_BATCH, *v1_grid(lo, 1024, 512))}
+
+
+def v1_grid(num_tokens: int, img_h: int, img_w: int) -> tuple:
+    """((patch_h, patch_w), (resized_h, resized_w)) of a MoGe-1 forward of an
+    img_h x img_w image at ``num_tokens``: ``MoGeV1.forward``'s arithmetic."""
+    factor = ((num_tokens * 14 ** 2) / (img_h * img_w)) ** 0.5
+    resized_h, resized_w = int(img_h * factor), int(img_w * factor)
+    return (resized_h // 14, resized_w // 14), (resized_h, resized_w)
 
 
 def k3_shapes_v1(config: dict, patch: tuple, resized: tuple) -> list:

@@ -58,8 +58,36 @@
 //   in flight while the block waits for the next step's data.
 // - Epilogue from the accumulator registers: + bias and + residual in fp32,
 //   one rounding, masked bf16x2 stores (scalar for the generic variant).
-// fp32 (parity and gradient checks, not the main path): a 64x64 tile of 4
-// warps with plain fp32 FMAs over scalar loads staged in shared memory.
+//
+// fp32: the main path of MoGe-1's `infer` and of every fp32 `infer` (the
+// command's default), the fp32 panorama and eval, the up2 parity convs. Every
+// product and sum is an IEEE fp32 FFMA (no TF32 in any form). What bounds it:
+// the FP32 pipes, 18*C*O flops a pixel at 66.9 TFLOP/s (128 FFMA lanes on each
+// of 132 SMs at 1.98 GHz); MoGe-1's folder image (17 convs, 349.5 GFLOP) needs
+// 5.22 ms, against tens of MB of maps. A register-blocked implicit GEMM:
+// - A block of 256 threads computes BN output channels (32, 64 or 128, chosen
+//   per launch from O and the grid by ops/conv.py::_f32_tile) by a patch of
+//   16384 / BN pixels (8 x 16, 16 x 16, 16 x 32). A thread holds 8 pixels by
+//   8 channels in registers (64 accumulators), so each value read from shared
+//   memory feeds 8 FFMAs: per 4 input channels, 8 float4 of weights and 8
+//   float4 of input (4 channels of a pixel each) for 256 FFMAs.
+// - K is walked as (channel chunk of KC = 16, or 8 where 16 does not divide C:
+//   C = 66 pads to 72; tap). Per chunk the (PH+2) x (PW+2) input patch is
+//   staged once by cp.async (16 bytes, or 8 where C % 4 == 2) from the CLAMPED
+//   source row and column (the replicate padding; no padded copy), zero past
+//   C; the 9 taps are shifted windows of it. The patch is channel-innermost
+//   (KC channels and 16 bytes of pad a pixel): a tap's shift moves along
+//   pixels, so loads are vectorised along the channels and the output
+//   channels, and a quarter-warp reads one or two pixels on different banks.
+//   Each tap's (KC x BN) weight slice arrives by 16-byte cp.async, zero past
+//   C and O. A ring of 4 weight slots and 2 patch slots, the copies issued 3
+//   steps ahead, one barrier a step.
+// - The input ReLU: once a chunk, in shared memory, each thread on the
+//   elements it copied after they landed (ReLU commutes with the padding).
+// - Epilogue from the registers: + bias, + residual in fp32, float4 stores.
+// - An odd C, an O not a multiple of 4 or a pointer not 16-byte aligned takes
+//   the generic kernel (conv3x3_f32_generic: a 64x64 tile of 4 warps, scalar
+//   loads staged in shared memory, two barriers a step).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -69,8 +97,260 @@
 
 namespace {
 
+// ------------------------------------------------------------ async copies
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------- fp32 path
 
+namespace f32 {
+constexpr int kThreads = 256;
+constexpr int kTM = 8;                   // output pixels per thread
+constexpr int kTN = 8;                   // output channels per thread: two groups of 4
+constexpr int kStages = 4;               // weight slots
+constexpr int kAhead = kStages - 1;      // steps whose copies are in flight ahead of the one computed
+
+// A block: BN output channels by a patch of BM = 16384 / BN pixels (8 x 16,
+// 16 x 16 or 16 x 32 for BN = 128, 64, 32), so every build holds 64
+// accumulators a thread. KC input channels per K step; the patch is copied
+// CW bytes (CW / 4 channels) at a time.
+template <int BN, int KC, int CW>
+struct Cfg {
+  static constexpr int kGroupsN = BN / kTN;             // threads along N: 16, 8, 4
+  static constexpr int kGroupsM = kThreads / kGroupsN;  // along the pixels: 16, 32, 64
+  static constexpr int kBM = kGroupsM * kTM;            // 128, 256, 512
+  static constexpr int kPW = BN == 32 ? 32 : 16;        // the patch, kPH x kPW
+  static constexpr int kPH = kBM / kPW;
+  static constexpr int kCols = kPW / kTM;               // pixel groups a patch row
+  static constexpr int kHaloW = kPW + 2;                // the patch with its 1-pixel halo
+  static constexpr int kHaloPx = (kPH + 2) * kHaloW;
+  static constexpr int kLd = KC + 4;                    // floats a staged pixel: its channels, 16 bytes of pad
+  static constexpr int kHalo = kHaloPx * kLd;           // floats of a patch slot (two slots)
+  static constexpr int kB = KC * BN;                    // floats of a weight slot
+  static constexpr int kSmem = static_cast<int>(sizeof(float)) * (2 * kHalo + kStages * kB);
+  static constexpr int kWarpN = kGroupsN < 8 ? kGroupsN : 8;  // N groups a warp spans
+  static constexpr int kWarpsN = kGroupsN / kWarpN;           // warps along N
+  static constexpr int kCopyCh = CW / 4;                      // channels a patch copy
+  static_assert(BN == 32 || BN == 64 || BN == 128, "BN");
+  static_assert(KC == 8 || KC == 16, "KC");
+  static_assert(CW == 8 || CW == 16, "CW");
+  static_assert(kPH * kPW == kBM && kCols * kTM == kPW, "patch");
+  static_assert(2 * kSmem <= 227 * 1024, "two blocks an SM");
+};
+}  // namespace f32
+
+// one CW-byte copy global -> shared, zero-filled when !ok (src is then not read)
+template <int CW>
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool ok) {
+  const uint32_t d = smem_u32(dst);
+  if constexpr (CW == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(CW), "r"(ok ? CW : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ float4 ld4s(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// acc[j] += a * b[j / 4].(j % 4): one channel of one pixel into the thread's 8 output channels
+__device__ __forceinline__ void fma8(float (&acc)[f32::kTN], float a, const float4 (&b)[2]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    acc[q * 4 + 0] = fmaf(a, b[q].x, acc[q * 4 + 0]);
+    acc[q * 4 + 1] = fmaf(a, b[q].y, acc[q * 4 + 1]);
+    acc[q * 4 + 2] = fmaf(a, b[q].z, acc[q * 4 + 2]);
+    acc[q * 4 + 3] = fmaf(a, b[q].w, acc[q * 4 + 3]);
+  }
+}
+
+template <int BN, int KC, int CW>
+__global__ void __launch_bounds__(f32::kThreads, 2)
+conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+            const float* __restrict__ res, float* __restrict__ y, int B0, int H, int W, int C, int O, int relu) {
+  using Cf = f32::Cfg<BN, KC, CW>;
+  constexpr int T = f32::kThreads, S = f32::kStages, D = f32::kAhead, TM = f32::kTM;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* const halo = smem_f32;                  // two patch slots, [pixel][kLd]
+  float* const ring = smem_f32 + 2 * Cf::kHalo;  // S weight slots, [KC][BN]
+
+  // this block: weight group g, image b, the kPH x kPW output patch at (h0, w0), output channels n0..
+  const int g = blockIdx.z;
+  const int tiles_w = (W + Cf::kPW - 1) / Cf::kPW, tiles_h = (H + Cf::kPH - 1) / Cf::kPH;
+  const int tx = blockIdx.x % tiles_w, ty = (blockIdx.x / tiles_w) % tiles_h;
+  const int b = blockIdx.x / (tiles_w * tiles_h);
+  const int h0 = ty * Cf::kPH, w0 = tx * Cf::kPW;
+  const int n0 = blockIdx.y * BN;
+  const int64_t M = static_cast<int64_t>(B0) * H * W;
+  x += static_cast<int64_t>(g) * M * C + static_cast<int64_t>(b) * H * W * C;
+  y += static_cast<int64_t>(g) * M * O;
+  if (res != nullptr) res += static_cast<int64_t>(g) * M * O;
+  w += static_cast<int64_t>(g) * 9 * C * O;
+  if (bias != nullptr) bias += static_cast<int64_t>(g) * O;
+
+  // this thread: output channels 4 ng.. and BN / 2 + 4 ng.. (+ 0..3) of the 8 pixels
+  // (pr, pc + kCols i) of the patch. A quarter-warp spans 8 (BN >= 64) or 4 N groups of
+  // 1 or 2 pixel groups: its weight reads are 128 or 64 contiguous bytes, its patch reads
+  // one pixel, or two adjacent ones kLd floats apart, on different banks.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ng = (warp % Cf::kWarpsN) * Cf::kWarpN + lane % Cf::kWarpN;
+  const int pg = (warp / Cf::kWarpsN) * (32 / Cf::kWarpN) + lane / Cf::kWarpN;
+  const int pr = pg / Cf::kCols, pc = pg % Cf::kCols;
+  const int a_base = (pr * Cf::kHaloW + pc) * Cf::kLd;  // its first pixel at tap (-1, -1)
+
+  const int chunks = (C + KC - 1) / KC, steps = 9 * chunks;  // K step s: channel chunk s / 9, tap s % 9
+
+  // the patch of chunk ck into slot ck % 2: every halo pixel's KC channels from the
+  // CLAMPED source row and column (the replicate padding; no padded copy), zero past C
+  constexpr int kPieces = KC / Cf::kCopyCh;
+  constexpr int kHaloCopies = Cf::kHaloPx * kPieces;
+  constexpr int kHaloIters = (kHaloCopies + T - 1) / T;
+  auto load_halo = [&](int ck) {
+    float* const dst = halo + (ck & 1) * Cf::kHalo;
+#pragma unroll
+    for (int j = 0; j < kHaloIters; ++j) {
+      const int i = threadIdx.x + j * T;
+      if (kHaloCopies % T != 0 && i >= kHaloCopies) break;
+      const int p = i / kPieces, part = (i % kPieces) * Cf::kCopyCh, c = ck * KC + part;
+      const int hh = min(max(h0 + p / Cf::kHaloW - 1, 0), H - 1);
+      const int ww = min(max(w0 + p % Cf::kHaloW - 1, 0), W - 1);
+      const bool ok = c < C;
+      cp_async_f32<CW>(dst + p * Cf::kLd + part, x + (static_cast<int64_t>(hh) * W + ww) * C + (ok ? c : 0), ok);
+    }
+  };
+  // the input ReLU, once a chunk, on the patch elements this thread copied, after they
+  // landed and before the barrier that hands them to the block (ReLU commutes with the
+  // replicate padding; a copy cannot apply it on the way in)
+  auto relu_halo = [&](int ck) {
+    float* const dst = halo + (ck & 1) * Cf::kHalo;
+#pragma unroll
+    for (int j = 0; j < kHaloIters; ++j) {
+      const int i = threadIdx.x + j * T;
+      if (kHaloCopies % T != 0 && i >= kHaloCopies) break;
+      float* const e = dst + (i / kPieces) * Cf::kLd + (i % kPieces) * Cf::kCopyCh;
+      if constexpr (CW == 16) {
+        float4 v = ld4s(e);
+        *reinterpret_cast<float4*>(e) = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+      } else {
+        float2 v = *reinterpret_cast<const float2*>(e);
+        *reinterpret_cast<float2*>(e) = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
+      }
+    }
+  };
+  // the (KC x BN) weight slice of step s into slot s % S, 16 bytes a copy, zero past C and O
+  constexpr int kVecs = BN / 4;
+  constexpr int kBCopies = KC * kVecs;
+  constexpr int kBIters = (kBCopies + T - 1) / T;
+  auto load_b = [&](int s) {
+    const int ck = s / 9, tap = s - 9 * ck, c0 = ck * KC;
+    float* const dst = ring + (s % S) * Cf::kB;
+    const float* const src = w + static_cast<int64_t>(tap * C + c0) * O + n0;
+#pragma unroll
+    for (int j = 0; j < kBIters; ++j) {
+      const int i = threadIdx.x + j * T;
+      if (kBCopies % T != 0 && i >= kBCopies) break;
+      const int k = i / kVecs, n = (i % kVecs) * 4;
+      const bool ok = c0 + k < C && n0 + n < O;
+      cp_async_f32<16>(dst + k * BN + n, ok ? src + static_cast<int64_t>(k) * O + n : w, ok);
+    }
+  };
+  // one commit group per step: its weights, and the chunk's patch with the chunk's first tap
+  auto load = [&](int s) {
+    if (s % 9 == 0) load_halo(s / 9);
+    load_b(s);
+  };
+
+  float acc[TM][f32::kTN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < f32::kTN; ++j) acc[i][j] = 0.f;
+
+  // The ring: the copies of step s are issued D = S - 1 steps ahead, into the weight slot
+  // step s - 1 read and (at a chunk's first tap) the patch slot chunk ck - 1 read; every
+  // thread finished both before the barrier at the top of step s. One barrier a step.
+#pragma unroll 1
+  for (int s = 0; s < D; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<D - 1>();  // this thread's copies of step s (and of its chunk's patch) landed
+    const int ck = s / 9, tap = s - 9 * ck;
+    if (relu && tap == 0) relu_halo(ck);
+    __syncthreads();         // everyone's landed; everyone is done with step s - 1's slots
+    if (s + D < steps) load(s + D);
+    cp_async_commit();
+    // tap (dh, dw) reads the patch shifted by (dh - 1, dw - 1): a window of the staged halo
+    const float* const as = halo + (ck & 1) * Cf::kHalo + a_base + ((tap / 3) * Cf::kHaloW + tap % 3) * Cf::kLd;
+    const float* const bs = ring + (s % S) * Cf::kB + ng * 4;
+#pragma unroll
+    for (int cq = 0; cq < KC / 4; ++cq) {
+      float4 bv[4][2];  // 4 channels x this thread's 8 output channels
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        bv[cc][0] = ld4s(bs + (cq * 4 + cc) * BN);
+        bv[cc][1] = ld4s(bs + (cq * 4 + cc) * BN + BN / 2);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 a = ld4s(as + i * Cf::kCols * Cf::kLd + cq * 4);  // 4 channels of pixel i
+        fma8(acc[i], a.x, bv[0]);
+        fma8(acc[i], a.y, bv[1]);
+        fma8(acc[i], a.z, bv[2]);
+        fma8(acc[i], a.w, bv[3]);
+      }
+    }
+  }
+
+  // epilogue from the registers: + bias, + residual in fp32, float4 stores (O % 4 == 0)
+  const int h = h0 + pr;
+  if (h >= H) return;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int n = n0 + q * (BN / 2) + ng * 4;
+    if (n >= O) continue;
+    const float4 bb = bias != nullptr ? __ldg(reinterpret_cast<const float4*>(bias + n)) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int ww = w0 + pc + Cf::kCols * i;
+      if (ww >= W) continue;
+      const int64_t idx = ((static_cast<int64_t>(b) * H + h) * W + ww) * O + n;
+      float4 v = make_float4(acc[i][q * 4] + bb.x, acc[i][q * 4 + 1] + bb.y, acc[i][q * 4 + 2] + bb.z,
+                             acc[i][q * 4 + 3] + bb.w);
+      if (res != nullptr) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(res + idx));
+        v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
+      }
+      *reinterpret_cast<float4*>(y + idx) = v;
+    }
+  }
+}
+
+template <int BN, int KC, int CW>
+int launch_f32_tile(const float* x, const float* w, const float* bias, const float* res, float* y, int G, int B0,
+                    int H, int W, int C, int O, int relu, cudaStream_t stream) {
+  using Cf = f32::Cfg<BN, KC, CW>;
+  static std::atomic<uint64_t> opted{0};  // per card: the >48 KB opt-in of this instantiation
+  const cudaError_t attr = opt_in_smem(reinterpret_cast<const void*>(conv3x3_f32<BN, KC, CW>), Cf::kSmem, opted);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int64_t tiles = static_cast<int64_t>(B0) * ((H + Cf::kPH - 1) / Cf::kPH) * ((W + Cf::kPW - 1) / Cf::kPW);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), (O + BN - 1) / BN, G);
+  conv3x3_f32<BN, KC, CW><<<grid, f32::kThreads, Cf::kSmem, stream>>>(x, w, bias, res, y, B0, H, W, C, O, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------- fp32 generic path
+
+namespace generic {
 constexpr int kBM = 64;  // output pixels per block
 constexpr int kBN = 64;  // output channels per block
 constexpr int kBK = 32;  // input channels per K step
@@ -121,9 +401,9 @@ struct MmaF32 {
 };
 
 __global__ void __launch_bounds__(kThreads)
-conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
-            const float* __restrict__ res, float* __restrict__ y, int B0, int H, int W, int C, int O,
-            int relu) {
+conv3x3_f32_generic(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                    const float* __restrict__ res, float* __restrict__ y, int B0, int H, int W, int C, int O,
+                    int relu) {
   using Tl = TileF32;
   __shared__ __align__(128) unsigned char smem[Tl::total];
   __shared__ int pix_b[kBM], pix_h[kBM], pix_w[kBM];
@@ -194,14 +474,39 @@ conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w, const floa
   }
 }
 
-int launch_f32(const void* x, const void* w, const float* bias, const void* res, void* y, int G, int B0,
-               int H, int W, int C, int O, int relu, cudaStream_t stream) {
+int launch(const float* x, const float* w, const float* bias, const float* res, float* y, int G, int B0, int H,
+           int W, int C, int O, int relu, cudaStream_t stream) {
   const int64_t M = static_cast<int64_t>(B0) * H * W;
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), (O + kBN - 1) / kBN, G);
-  conv3x3_f32<<<grid, kThreads, 0, stream>>>(static_cast<const float*>(x), static_cast<const float*>(w), bias,
-                                             static_cast<const float*>(res), static_cast<float*>(y), B0, H, W,
-                                             C, O, relu);
+  conv3x3_f32_generic<<<grid, kThreads, 0, stream>>>(x, w, bias, res, y, B0, H, W, C, O, relu);
   return static_cast<int>(cudaGetLastError());
+}
+}  // namespace generic
+
+// the fp32 launch ops/conv.py::_f32_tile chose: the tiled kernel's build (bn, kc, vw: BN,
+// KC, CW; bm its pixels per block), or with vw = 0 the generic kernel. A build the call's
+// shape or pointers do not fit is an error, as is a build the dispatch does not list.
+int launch_f32(const void* xv, const void* wv, const float* bias, const void* resv, void* yv, int G, int B0, int H,
+               int W, int C, int O, int relu, int bm, int bn, int vw, int kc, cudaStream_t st) {
+  const float *x = static_cast<const float*>(xv), *w = static_cast<const float*>(wv);
+  const float* res = static_cast<const float*>(resv);
+  float* y = static_cast<float*>(yv);
+  if (vw == 0) return generic::launch(x, w, bias, res, y, G, B0, H, W, C, O, relu, st);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (O % 4 != 0 || C % (vw / 4) != 0 || !aligned(x) || !aligned(w) || !aligned(y) ||
+      (bias != nullptr && !aligned(bias)) || (res != nullptr && !aligned(res)))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define MOGE_CONV_F32(BN_, KC_, CW_)                                                    \
+  if (bn == BN_ && kc == KC_ && vw == CW_ && bm == f32::Cfg<BN_, KC_, CW_>::kBM) \
+    return launch_f32_tile<BN_, KC_, CW_>(x, w, bias, res, y, G, B0, H, W, C, O, relu, st);
+#define MOGE_CONV_F32_WIDTHS(KC_, CW_) \
+  MOGE_CONV_F32(32, KC_, CW_) MOGE_CONV_F32(64, KC_, CW_) MOGE_CONV_F32(128, KC_, CW_)
+  MOGE_CONV_F32_WIDTHS(16, 16)
+  MOGE_CONV_F32_WIDTHS(8, 16)
+  MOGE_CONV_F32_WIDTHS(8, 8)
+#undef MOGE_CONV_F32_WIDTHS
+#undef MOGE_CONV_F32
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ------------------------------------------------------- bf16 path (wgmma)
@@ -244,13 +549,6 @@ __device__ __forceinline__ void copy_in(uint32_t dst, const bf16* src, bool ok) 
     const unsigned short v = ok ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
     asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
   }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -558,14 +856,14 @@ int launch_bf16(const void* x, const void* w, const float* bias, const void* res
 }
 
 int dispatch(const void* x, const void* w, const void* bias, const void* res, void* y, int G, int B0,
-             int H, int W, int C, int O, int relu, int dtype, int bm, int bn, int vw, void* stream) {
+             int H, int W, int C, int O, int relu, int dtype, int bm, int bn, int vw, int kc, void* stream) {
   if (G <= 0 || G > 65535 || B0 <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 ||
       static_cast<int64_t>(B0) * H > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) return launch_bf16(x, w, b, res, y, G, B0, H, W, C, O, relu, bm, bn, vw, st);
-  if (dtype == kFloat32) return launch_f32(x, w, b, res, y, G, B0, H, W, C, O, relu, st);
+  if (dtype == kFloat32) return launch_f32(x, w, b, res, y, G, B0, H, W, C, O, relu, bm, bn, vw, kc, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -573,20 +871,21 @@ int dispatch(const void* x, const void* w, const void* bias, const void* res, vo
 
 // K3. x: (B, H, W, C), w: (3, 3, C, O), res/y: (B, H, W, O), all contiguous
 // in the given dtype; bias: (O,) fp32 or null; res may be null; bm, bn, vw:
-// the bf16 kernel's tile of bm pixels by bn channels and its copy width in
-// bytes (ops/conv.py::_tile_config), ignored for fp32.
+// the tile of bm pixels by bn channels and the patch's copy width in bytes
+// (bf16: ops/conv.py::_tile_config; fp32: _f32_tile, vw = 0 the generic
+// kernel); kc: the fp32 kernel's input channels per K step, ignored for bf16.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int moge_conv3x3(const void* x, const void* w, const void* bias, const void* res,
                             void* y, int B, int H, int W, int C, int O, int relu, int dtype, int bm, int bn,
-                            int vw, void* stream) {
-  return dispatch(x, w, bias, res, y, 1, B, H, W, C, O, relu, dtype, bm, bn, vw, stream);
+                            int vw, int kc, void* stream) {
+  return dispatch(x, w, bias, res, y, 1, B, H, W, C, O, relu, dtype, bm, bn, vw, kc, stream);
 }
 
 // K3-grouped. x: (G*B0, H, W, C), w: (G, 3, 3, C, O), res/y: (G*B0, H, W, O),
 // all contiguous in the given dtype; bias: (G, O) fp32 or null; res may be
-// null. Batch entry b uses weight group b / B0. bm, bn, vw as for moge_conv3x3.
+// null. Batch entry b uses weight group b / B0. bm, bn, vw, kc as for moge_conv3x3.
 extern "C" int moge_conv3x3_grouped(const void* x, const void* w, const void* bias, const void* res,
                                     void* y, int G, int B0, int H, int W, int C, int O, int relu,
-                                    int dtype, int bm, int bn, int vw, void* stream) {
-  return dispatch(x, w, bias, res, y, G, B0, H, W, C, O, relu, dtype, bm, bn, vw, stream);
+                                    int dtype, int bm, int bn, int vw, int kc, void* stream) {
+  return dispatch(x, w, bias, res, y, G, B0, H, W, C, O, relu, dtype, bm, bn, vw, kc, stream);
 }

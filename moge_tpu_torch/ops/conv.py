@@ -24,7 +24,11 @@ the launch's variant: ``wgmma_tma_cp16`` (weights by TMA, input by 16-byte
 cp.async), ``wgmma_cp8`` / ``wgmma_cp4`` (both by 8- or 4-byte cp.async):
 the pipelined variants, ``PIPELINED``, which every main-path shape takes;
 ``wgmma_generic`` (2-byte loads through registers, for an odd C or O or
-misaligned pointers) and ``fp32`` (the scalar fp32 kernel).
+misaligned pointers). For fp32 (MoGe-1's ``infer`` and every fp32
+``infer``) the kernel is a register-blocked FFMA implicit GEMM whose tile
+and channel chunk ``_f32_tile`` chooses per launch: variant ``fp32``; an
+odd C, an O not a multiple of 4 or a pointer not 16-byte aligned takes the
+scalar kernel, variant ``fp32_generic``.
 
 K3 and K3-grouped are the op ``moge::conv3x3(x, kernel, bias, residual,
 input_relu)`` (a 5-dim kernel is K3-grouped). Registration, routing and the
@@ -38,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,14 +53,25 @@ __all__ = ["conv3x3_replicate", "conv3x3_plain", "conv3x3_up2_bilinear", "up2_co
            "up2_conv3_expanded", "depth_to_space2", "PIPELINED", "VARIANTS"]
 
 PIPELINED = ("wgmma_tma_cp16", "wgmma_cp8", "wgmma_cp4")  # the bf16 variants that copy asynchronously
-VARIANTS = PIPELINED + ("wgmma_generic", "fp32")  # every variant a K3 or K3-grouped launch takes
+VARIANTS = PIPELINED + ("wgmma_generic", "fp32", "fp32_generic")  # every variant a K3 or K3-grouped launch takes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-K3 = _build.Entry("conv3x3", "conv3x3", "moge_conv3x3", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+K3 = _build.Entry("conv3x3", "conv3x3", "moge_conv3x3", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                   + [ctypes.c_void_p], variants=VARIANTS)
 K3_GROUPED = _build.Entry("conv3x3_grouped", "conv3x3", "moge_conv3x3_grouped", [ctypes.c_void_p] * 5
-                          + [ctypes.c_int] * 11 + [ctypes.c_void_p], variants=VARIANTS)
+                          + [ctypes.c_int] * 12 + [ctypes.c_void_p], variants=VARIANTS)
 N_TILES = (16, 32, 64, 128)  # wgmma widths the bf16 kernel is built for
+# the fp32 kernel's builds (csrc/conv3x3.cu): N widths, each over a patch of
+# F32_OUTPUTS / N pixels (8 x 16, 16 x 16, 16 x 32), and the blocks an SM
+# holds (256 threads at most 128 registers each); per F32_ROUNDS, the time of
+# a last round that leaves 1 or 2 blocks on the busiest SM, relative to a
+# full round: a fit to CUDA-event times on an H100 (86x114 256 -> 512 in one
+# round and one of one block an SM against 172x228 128 -> 256 in two and one
+# of one block, which read 0.59)
+F32_N_TILES = (32, 64, 128)
+F32_OUTPUTS = 16384
+F32_PER_SM = 2
+F32_ROUNDS = (0.6, 1.0)
 
 
 class ConvTile(NamedTuple):
@@ -93,6 +108,59 @@ def _tile_config(G: int, B0: int, H: int, W: int, C: int, O: int, sms: int, alig
     if copy == 16 and bn >= 64 and wide.blocks(G, B0, H, W, O) >= 4 * sms:
         return wide
     return ConvTile(64, bn, copy)
+
+
+class F32Tile(NamedTuple):
+    """The fp32 kernel's launch: ``bn`` output channels by ``bm`` pixels (a
+    patch of ``patch`` rows by columns), ``chunk`` input channels per K
+    step, the input staged ``copy`` bytes at a time (16, or 8 for C % 4 ==
+    2); ``copy`` 0 is the generic kernel (64 x 64 tiles)."""
+    bm: int
+    bn: int
+    copy: int
+    chunk: int
+
+    @property
+    def variant(self) -> str:
+        return "fp32" if self.copy else "fp32_generic"
+
+    @property
+    def patch(self) -> Tuple[int, int]:
+        pw = 32 if self.bn == 32 else 16
+        return self.bm // pw, pw
+
+    def blocks(self, G: int, B0: int, H: int, W: int, O: int) -> int:
+        """Blocks of the tiled kernel's launch: G x B0 x patches x N tiles."""
+        ph, pw = self.patch
+        return G * B0 * -(-H // ph) * -(-W // pw) * -(-O // self.bn)
+
+
+F32_GENERIC = F32Tile(64, 64, 0, 32)
+
+
+def _f32_finish(blocks: int, sms: int) -> float:
+    """Rounds of ``F32_PER_SM`` blocks an SM that ``blocks`` take, the last
+    one weighed by the blocks it leaves on the busiest SM (``F32_ROUNDS``)."""
+    full, last = divmod(blocks, F32_PER_SM * sms)
+    return full * F32_ROUNDS[-1] + (F32_ROUNDS[-(-last // sms) - 1] if last else 0.0)
+
+
+@functools.lru_cache(maxsize=1024)
+def _f32_tile(G: int, B0: int, H: int, W: int, C: int, O: int, sms: int, align: int = 16) -> F32Tile:
+    """The fp32 kernel's launch for G groups of B0 x H x W pixels, C -> O
+    channels, on a card of ``sms`` SMs, pointers aligned to ``align`` bytes.
+    The generic kernel for an odd C, an O not a multiple of 4 or pointers
+    not 16-byte aligned. Else the chunk is 16 channels where C is a multiple
+    of 16, else 8 (C = 66 runs 72, not 80); the patch copies 16 bytes where C
+    is a multiple of 4, else 8. Of the N widths, the one whose launch
+    finishes first (``_f32_finish``: every build's block holds the same
+    ``F32_OUTPUTS`` outputs, so blocks weigh alike), then the one with the
+    fewest blocks, then the widest."""
+    if C % 2 or O % 4 or align % 16:
+        return F32_GENERIC
+    chunk, copy = (16 if C % 16 == 0 else 8), (16 if C % 4 == 0 else 8)
+    tiles = [F32Tile(F32_OUTPUTS // bn, bn, copy, chunk) for bn in F32_N_TILES]
+    return min(tiles, key=lambda t: (_f32_finish(t.blocks(G, B0, H, W, O), sms), t.blocks(G, B0, H, W, O), -t.bn))
 
 
 def _alignment(*tensors) -> int:
@@ -161,12 +229,14 @@ def _launch(x, kernel, bias, residual, input_relu) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         tile = _tile_config(G or 1, B // (G or 1), H, W, C, O, _build.sm_count(x.device),
                             _alignment(x, kernel, residual, y))
-        variant = tile.variant
+        args = (*tile, 0)
     else:
-        tile, variant = (0, 0, 0), "fp32"
-    entry(variant, x.device, x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+        tile = _f32_tile(G or 1, B // (G or 1), H, W, C, O, _build.sm_count(x.device),
+                         _alignment(x, kernel, bias, residual, y))
+        args = tile
+    entry(tile.variant, x.device, x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
           None if residual is None else residual.data_ptr(), y.data_ptr(), *dims, int(input_relu),
-          _DTYPES[x.dtype], *tile)
+          _DTYPES[x.dtype], *args)
     return y
 
 

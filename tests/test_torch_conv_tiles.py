@@ -1,6 +1,7 @@
-"""The bf16 K3 kernel's per-launch tile choice (``ops/conv.py::_tile_config``)
-at the main path's shapes, and its agreement with what ``csrc/conv3x3.cu``
-is built for. Pure Python: runs on the CPU, no card needed."""
+"""The K3 kernels' per-launch tile choice at the main path's shapes, and its
+agreement with what ``csrc/conv3x3.cu`` is built for: the bf16 kernel's
+(``ops/conv.py::_tile_config``) and the fp32 kernel's (``_f32_tile``, at
+MoGe-1's folder shapes). Pure Python: runs on the CPU, no card needed."""
 
 import math
 import re
@@ -123,3 +124,104 @@ def test_cpu_tensors_count_no_launch():
     x = torch.randn(1, 5, 6, 8, dtype=torch.bfloat16)
     conv.conv3x3_replicate(x, torch.randn(3, 3, 8, 4, dtype=torch.bfloat16), torch.zeros(4))
     assert _build.read_launches() == before
+
+
+# (H, W, C, O) of every 3x3 conv of MoGe-1 moge-vitl's fp32 ``infer`` on a
+# 480x640 image at 2500 tokens (a 43 x 57 token grid, the network input
+# 606 x 808): per upsample stage (86 x 114, 172 x 228, 344 x 456) the conv
+# after the transposed conv, the res blocks' convs into and out of the
+# doubled width; the two output heads' first conv over the features and the
+# UV channels (64 + 2 -> 32)
+MOGE1_SHAPES = [(86, 114, 256, 256), (86, 114, 256, 512), (86, 114, 512, 256),
+                (172, 228, 128, 128), (172, 228, 128, 256), (172, 228, 256, 128),
+                (344, 456, 64, 64), (344, 456, 64, 128), (344, 456, 128, 64), (606, 808, 66, 32)]
+
+
+def _built_f32_tiles():
+    """(bn, chunk, copy) of every fp32 build the C dispatch lists."""
+    text = SOURCE.read_text()
+    widths = [int(w) for w in re.findall(r"MOGE_CONV_F32\((\d+), KC_, CW_\)", text)]
+    return {(bn, int(kc), int(cw)) for kc, cw in re.findall(r"^\s*MOGE_CONV_F32_WIDTHS\((\d+), (\d+)\)", text, re.M)
+            for bn in widths}
+
+
+def _f32_builds(c):
+    """Every build of the fp32 kernel a C-channel input can take."""
+    plan = conv._f32_tile(1, 1, 64, 64, c, 64, SMS)
+    return [conv.F32Tile(conv.F32_OUTPUTS // bn, bn, plan.copy, plan.chunk) for bn in conv.F32_N_TILES]
+
+
+@pytest.mark.parametrize("h,w,c,o", MOGE1_SHAPES)
+def test_moge1_shapes_take_the_tiled_fp32_kernel(h, w, c, o):
+    tile = conv._f32_tile(1, 1, h, w, c, o, SMS)
+    assert tile.variant == "fp32"
+    assert (tile.bn, tile.chunk, tile.copy) in _built_f32_tiles()
+    assert tile.bm * tile.bn == conv.F32_OUTPUTS and tile.patch[0] * tile.patch[1] == tile.bm
+
+
+@pytest.mark.parametrize("h,o,bn", [(606, 32, 32), (606, 12, 32), (606, 4, 32), (344, 64, 64), (344, 128, 128),
+                                    (172, 256, 128), (344, 512, 128)])
+def test_fp32_n_width_follows_o_where_the_grid_is_large(h, o, bn):
+    """Many rounds of blocks: the narrowest build that holds O (the heads'
+    32, MoGe-2's up2 parity forms 4 x 3 and 4 x 1), 128 above it."""
+    assert conv._f32_tile(1, 1, h, h * 4 // 3, 64, o, SMS).bn == bn
+
+
+@pytest.mark.parametrize("c,chunk,copy", [(66, 8, 8), (64, 16, 16), (256, 16, 16), (24, 8, 16), (130, 8, 8),
+                                          (2, 8, 8), (20, 8, 16)])
+def test_fp32_chunk_pads_c_the_least(c, chunk, copy):
+    """16 channels a K step where that divides C, else 8: folder's heads (C =
+    64 + 2) pad 66 to 72, not to 80 (16) or 96 (the generic kernel's 32)."""
+    tile = conv._f32_tile(1, 1, 606, 808, c, 32, SMS)
+    assert (tile.chunk, tile.copy) == (chunk, copy)
+    assert (tile.bn, tile.chunk, tile.copy) in _built_f32_tiles()
+    if c == 66:
+        assert -(-c // tile.chunk) * tile.chunk == 72
+
+
+@pytest.mark.parametrize("h,w,c,o", [s for s in MOGE1_SHAPES if s[0] == 86])
+def test_fp32_plan_finishes_first_at_the_smallest_level(h, w, c, o):
+    """86 x 114 (9,804 pixels) on 132 SMs: of the builds, the launch whose
+    busiest SM finishes first, by whole rounds of two blocks an SM and the
+    last round's load; 256 -> 256 and 512 -> 256 in one round (176 blocks),
+    256 -> 512 in one full round and one of one block an SM (352)."""
+    tile = conv._f32_tile(1, 1, h, w, c, o, SMS)
+    finishes = [conv._f32_finish(t.blocks(1, 1, h, w, o), SMS) for t in _f32_builds(c)]
+    assert conv._f32_finish(tile.blocks(1, 1, h, w, o), SMS) == min(finishes)
+    assert tile.blocks(1, 1, h, w, o) == (352 if o == 512 else 176)
+    assert conv._f32_finish(tile.blocks(1, 1, h, w, o), SMS) == \
+        (conv.F32_ROUNDS[-1] + conv.F32_ROUNDS[0] if o == 512 else conv.F32_ROUNDS[-1])
+
+
+def test_fp32_rounds_follow_the_sm_count():
+    """Whole rounds of ``F32_PER_SM`` blocks an SM; a last round weighed by
+    the blocks it leaves on the busiest SM."""
+    per_round = conv.F32_PER_SM * SMS
+    assert conv._f32_finish(per_round, SMS) == conv.F32_ROUNDS[-1]
+    assert conv._f32_finish(3 * per_round, SMS) == 3 * conv.F32_ROUNDS[-1]
+    assert conv._f32_finish(per_round + 1, SMS) == conv.F32_ROUNDS[-1] + conv.F32_ROUNDS[0]
+    assert conv._f32_finish(per_round + SMS + 1, SMS) == 2 * conv.F32_ROUNDS[-1]
+    assert conv._f32_finish(SMS, SMS) == conv.F32_ROUNDS[0]
+
+
+@pytest.mark.parametrize("c,o,align", [(7, 20, 16), (24, 9, 16), (24, 18, 16), (1, 1, 16), (24, 20, 8), (24, 20, 4),
+                                       (66, 32, 8)])
+def test_fp32_generic_route(c, o, align):
+    """An odd C, an O not a multiple of 4 or a pointer not 16-byte aligned
+    takes the generic kernel, counted under ``fp32_generic``."""
+    tile = conv._f32_tile(1, 1, 9, 13, c, o, SMS, align)
+    assert tile == conv.F32_GENERIC and tile.variant == "fp32_generic"
+    assert tile.variant in conv.VARIANTS
+
+
+@pytest.mark.parametrize("g,b0", [(1, 1), (1, 2), (3, 1), (3, 2)])
+def test_fp32_blocks_cover_every_pixel_once(g, b0):
+    """The grid: G x B0 x patches x N tiles, each patch whole inside the
+    padded image."""
+    for h, w, c, o in MOGE1_SHAPES + [(9, 13, 24, 20), (37, 53, 64, 64), (1, 1, 8, 12)]:
+        tile = conv._f32_tile(g, b0, h, w, c, o, SMS)
+        ph, pw = tile.patch
+        patches = -(-h // ph) * -(-w // pw)
+        assert tile.blocks(g, b0, h, w, o) == g * b0 * patches * -(-o // tile.bn)
+        assert patches * tile.bm >= h * w
+        assert (-(-h // ph) - 1) * ph < h and (-(-w // pw) - 1) * pw < w

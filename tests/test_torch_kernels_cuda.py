@@ -1,10 +1,11 @@
 """Kernels K1-K4 (with the flash backward K2b-dq/K2b-dkv and the grouped conv
 K3-grouped) on the card against their plain versions, in fp32 and bf16, at
 small ragged shapes and at the main path's K3 shapes (one case per copy
-variant, counted), and the tiny MoGe-2 decode (sequential and batched
-heads), the tiny MoGe-1 forward and the MoGe-2 gradient on the card against
-the CPU, the sorted truncated-align forms and the bitonic network on the
-card against the CPU and the stable sort, the ported TPU probes T1-T6
+variant, counted; the fp32 K3 also at MoGe-1's folder shapes), and the tiny
+MoGe-2 decode (sequential and batched heads), the tiny MoGe-1 forward and
+the MoGe-2 gradient on the card against the CPU, the sorted truncated-align
+forms and the bitonic network on the card against the CPU and the stable
+sort, the ported TPU probes T1-T6
 against their plain versions, and the camera solve K5 against its plain
 version on the card (one launch, no host synchronisation). Needs
 a CUDA GPU and
@@ -363,11 +364,14 @@ def test_conv3x3_grouped_main_path_shapes(dev, dtype, b0, h, c, o, relu, use_res
 @pytest.mark.parametrize("c,o,offset,dtype,variant", [
     (64, 64, 0, torch.bfloat16, "wgmma_tma_cp16"), (24, 20, 0, torch.bfloat16, "wgmma_cp8"),
     (130, 70, 0, torch.bfloat16, "wgmma_cp4"), (7, 9, 0, torch.bfloat16, "wgmma_generic"),
-    (64, 64, 1, torch.bfloat16, "wgmma_generic"), (24, 20, 0, torch.float32, "fp32")])
+    (64, 64, 1, torch.bfloat16, "wgmma_generic"), (24, 20, 0, torch.float32, "fp32"),
+    (66, 20, 0, torch.float32, "fp32"), (7, 20, 0, torch.float32, "fp32_generic"),
+    (24, 9, 0, torch.float32, "fp32_generic"), (24, 20, 1, torch.float32, "fp32_generic")])
 def test_conv3x3_variants(dev, c, o, offset, dtype, variant):
     """One launch of each copy-width / loader variant, counted under it and
     nowhere else; ``offset`` shifts the input by one element, so its address
-    is only 2-byte aligned and the generic loader takes it."""
+    is only 2-byte (bf16) or 4-byte (fp32) aligned and the generic loader
+    (bf16) or kernel (fp32) takes it, as an odd C or O does."""
     g = _gen(dev, c * o + offset)
     x = torch.randn(2 * 9 * 13 * c + offset, device=dev, generator=g).to(dtype)[offset:].view(2, 9, 13, c)
     k = (torch.randn(3, 3, c, o, device=dev, generator=g) * (9 * c) ** -0.5).to(dtype)
@@ -377,6 +381,67 @@ def test_conv3x3_variants(dev, c, o, offset, dtype, variant):
     got = conv.conv3x3_replicate(x, k, bias, res, True).float()
     assert _variant_deltas(before) == {variant: 1}
     _check_conv(got, conv.conv3x3_plain(x.float(), k.float(), bias, res.float(), True), dtype)
+
+
+# K3 at MoGe-1's folder shapes (moge-vitl, fp32, one 480x640 image at 2500
+# tokens: the 43 x 57 token grid, the network input 606 x 808): per stage the
+# conv after the transposed conv, the res block's conv into the doubled width
+# (ReLU in) and back (ReLU in + residual); the two heads' first conv over the
+# features and the UV channels (64 + 2 -> 32), with and without a ReLU in
+MOGE1_K3 = [(h, w, c, o, relu, res) for h, w, d in ((86, 114, 256), (172, 228, 128), (344, 456, 64))
+            for c, o, relu, res in ((d, d, False, False), (d, 2 * d, True, False), (2 * d, d, True, True))] + \
+           [(606, 808, 66, 32, False, False), (606, 808, 66, 32, True, False)]
+
+
+def _f32_case(dev, seed, n, h, w, c, o, groups=0, use_bias=True, use_res=True):
+    """An fp32 input (n, h, w, c), (groups,) 3 x 3 x c x o weights, a bias and a residual (or None)."""
+    gen = _gen(dev, seed)
+    lead = (groups,) if groups else ()
+    x = torch.randn(n, h, w, c, device=dev, generator=gen)
+    k = torch.randn(*lead, 3, 3, c, o, device=dev, generator=gen) * (9 * c) ** -0.5
+    bias = torch.randn(*lead, o, device=dev, generator=gen) * 0.1 if use_bias else None
+    res = torch.randn(n, h, w, o, device=dev, generator=gen) if use_res else None
+    return x, k, bias, res
+
+
+def _check_f32_launch(x, k, bias, res, relu, kernel="conv3x3"):
+    """One launch of ``kernel`` under ``fp32`` (the tiled kernel), within FP32_TOL of the plain version."""
+    before = _counts()
+    got = conv.conv3x3_replicate(x, k, bias, res, relu)
+    assert _moved(before) == {(kernel, "fp32"): 1}
+    _check_conv(got, conv.conv3x3_plain(x, k, bias, res, relu), torch.float32)
+
+
+@pytest.mark.parametrize("h,w,c,o,relu,use_res", MOGE1_K3)
+def test_conv3x3_fp32_moge1_shapes(dev, h, w, c, o, relu, use_res):
+    """The tiled fp32 kernel at every conv shape of MoGe-1's folder image."""
+    x, k, bias, res = _f32_case(dev, h + c + o + relu, 1, h, w, c, o, use_res=use_res)
+    _check_f32_launch(x, k, bias, res, relu)
+
+
+@pytest.mark.parametrize("n,h,w,c,o,groups,use_bias,use_res,relu", [
+    (1, 37, 53, 64, 64, 0, True, True, True),      # H, W not multiples of any patch
+    (1, 9, 13, 24, 20, 0, True, False, False),     # one patch, O past the N tile's half
+    (2, 23, 41, 48, 100, 0, True, True, True),     # B0 = 2, O = 100 (a partial N tile)
+    (2, 86, 114, 256, 256, 0, True, True, True),   # B0 = 2 at folder's smallest level
+    (3, 37, 53, 64, 64, 3, True, True, True),      # K3-grouped, G = 3
+    (6, 17, 35, 66, 36, 3, True, True, False),     # K3-grouped, G = 3, B0 = 2, C = 66
+    (1, 30, 50, 64, 64, 0, False, True, True),     # bias None
+    (1, 30, 50, 128, 64, 0, True, False, True),    # residual None
+    (1, 30, 50, 16, 12, 0, False, False, False),   # neither
+    (1, 1, 1, 8, 12, 0, True, True, True)])        # one pixel: every tap reads it
+def test_conv3x3_fp32_edges(dev, n, h, w, c, o, groups, use_bias, use_res, relu):
+    x, k, bias, res = _f32_case(dev, n * h * w + c + o, n, h, w, c, o, groups, use_bias, use_res)
+    _check_f32_launch(x, k, bias, res, relu, "conv3x3_grouped" if groups else "conv3x3")
+
+
+@pytest.mark.parametrize("h,c,o,groups", [(148, 64, 32, 0), (296, 64, 3, 0), (296, 64, 1, 0), (37, 64, 3, 3)])
+def test_conv3x3_fp32_up2_parity_weights(dev, h, c, o, groups):
+    """The up2 form's operands (parity-expanded weights, O' = 4 O): MoGe-2's
+    fp32 neck and heads, and the grouped heads."""
+    x, k, bias, _ = _f32_case(dev, h + c + o, max(groups, 1), h, h, c, o, groups, use_res=False)
+    k, bias = conv.up2_conv3_expanded(k, bias, torch.float32)
+    _check_f32_launch(x, k, bias, None, False, "conv3x3_grouped" if groups else "conv3x3")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
